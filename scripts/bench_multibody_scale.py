@@ -1,20 +1,11 @@
-"""Same-run A/B: SCALE multi-body contact — a >=10k-particle ball-on-cloth
-scene with EXACT blocked self-collision at contact cadence, fused via the
-mesh hybrid step (contact-free substeps in the Mosaic mesh kernel, blocked
-contact substeps in the XLA engine, one jitted program) vs the all-XLA
-general engine — the round-4 verdict's item-2 done-criterion row.
+"""Scale multi-body contact: the ~20k-particle ``ball_on_cloth_xl`` scene
+(exact ``blocked`` self-collision every 3rd substep) on the general engine.
 
-The dense in-kernel pass is O(N^2) and VMEM-bounded (~16k particles); the
-scale path is the Morton-BLOCKED exact backend, which the mesh kernel
-reaches through ``make_mesh_hybrid_contact_step`` (``make_mesh_pallas_step``
-routes self-colliding cadence configs there).  Exactness is preserved:
-the pair-accurate ``blocked_dropped_pairs`` diagnostic must read 0 on the
-measured trajectory, and the hybrid's arithmetic equivalence with the
-engine's cadence is pinned in interpret mode
-(tests/test_mesh_pallas.py::test_mesh_hybrid_contact_step_matches_engine_cadence,
-tests/test_contact_cadence.py).
-
-Prints one JSON line per row.
+Warms the scene into a contact-rich state, gates exactness there (the
+pair-accurate ``blocked_dropped_pairs`` must read 0, i.e. coverage-
+identical to the ``dense`` backend), then times ``FRAMES_PER_CALL``-frame
+calls with ``jax.block_until_ready``.  Prints one JSON line per row, each
+naming the device it ran on.
 """
 
 import json
@@ -24,161 +15,57 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-from softbodysimulation_tpu import (  # noqa: E402
-    SolveMode,
-    SolverConfig,
-    state_from_topology,
-)
+from softbodysimulation_tpu.core.scenes import ball_on_cloth_xl  # noqa: E402
 from softbodysimulation_tpu.diag.diagnostics import (  # noqa: E402
     blocked_dropped_pairs, blocked_overflow)
-from softbodysimulation_tpu.interact import forces as _forces  # noqa: E402
-from softbodysimulation_tpu.kernels import mesh_pallas  # noqa: E402
 from softbodysimulation_tpu.solvers import general  # noqa: E402
-from softbodysimulation_tpu.topology import build as _build  # noqa: E402
-from softbodysimulation_tpu.topology import edges as _tedges  # noqa: E402
-from softbodysimulation_tpu.topology import mesh as _mesh  # noqa: E402
-from softbodysimulation_tpu.topology import tets as _tets  # noqa: E402
 
 FRAMES_PER_CALL = int(os.environ.get("BENCH_FRAMES_PER_CALL", "30"))
-CLOTH_RES = int(os.environ.get("BENCH_CLOTH_RES", "140"))
-CLOTH_SIZE = float(os.environ.get("BENCH_CLOTH_SIZE", "3.5"))
-BALL_RADIUS = float(os.environ.get("BENCH_BALL_RADIUS", "0.3"))
-CADENCE = int(os.environ.get("BENCH_CONTACT_EVERY", "3"))
 
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def scaled_ball_on_cloth(cloth_res=CLOTH_RES, cloth_size=CLOTH_SIZE,
-                         ball_subdiv=3, ball_radius=BALL_RADIUS, dt=1 / 60):
-    """ball_on_cloth at >=10k particles: the cloth scales in SIZE with its
-    resolution so the grid spacing (and hence the derived contact radius)
-    stays above the per-substep tunneling floor (core/scenes.py
-    ball_on_cloth's invariant, which caps the catalogued scene ~4k)."""
-    cm = _mesh.grid_plane(cloth_size, cloth_res)
-    cverts = cm.vertices + np.array([0.0, 1.0, 0.0], np.float32)
-    cedges = _tedges.unique_edges(cm.triangles)
-    chinges = _tedges.hinges(cm.triangles)
-
-    bm = _mesh.icosphere(ball_subdiv, radius=ball_radius)
-    bverts, btets = _tets.tets_from_surface_centroid(bm.vertices,
-                                                     bm.triangles)
-    bverts = (bverts + np.array([0.0, 1.0 + ball_radius + 0.15, 0.0])
-              ).astype(np.float32)
-
-    nc = cverts.shape[0]
-    pos, topo, _ = _build.merge_topologies([
-        _build.BodySpec(cverts, cedges, 1e-5,
-                        hinges=chinges, bend_compliance=1e-3,
-                        triangles=cm.triangles),
-        _build.BodySpec(bverts, _tets.tet_edges(btets), 1e-4,
-                        triangles=_tets.boundary_faces(btets),
-                        tets=btets, tet_compliance=0.0),
-    ], windowed=True)
-    spacing = cloth_size / (cloth_res - 1)
-    particle_radius = round(0.45 * spacing, 4)
-    assert 2.0 * particle_radius < spacing
-    assert particle_radius > 0.008, "contact radius below tunneling floor"
-    cfg = SolverConfig(substeps=6, iterations=4, damping=0.02,
-                       solve_mode=SolveMode.JACOBI,
-                       enable_bending=True,
-                       enable_tet_volume=True, tet_pressure=1.05,
-                       enable_self_collision=True,
-                       self_collision_backend="blocked",
-                       collision_block_size=256,
-                       block_neighbors=int(os.environ.get(
-                           "BENCH_BLOCK_NEIGHBORS", "18")),
-                       self_collision_every=CADENCE,
-                       particle_radius=particle_radius,
-                       ground_height=0.0, friction=0.3)
-    state = state_from_topology(topo, pos)
-    ii, jj = np.divmod(np.arange(nc), cloth_res)
-    rim = np.flatnonzero((ii % (cloth_res - 1) == 0)
-                         | (jj % (cloth_res - 1) == 0))
-    state = _forces.pin_indices(state, rim, pinned=True)
-    return state, topo, cfg, dt
-
-
-def measure(fn, state, work, repeats=5):
-    out = fn(state)
-    np.asarray(out.positions.reshape(-1)[0])   # compile + host-fetch sync
-    best = float("inf")
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        out = fn(out)
-        np.asarray(out.positions.reshape(-1)[0])
-        best = min(best, time.perf_counter() - t0)
-    return work / best, out
-
-
 def main():
-    import jax
-
-    state, topo, cfg, dt = scaled_ball_on_cloth()
+    dev = jax.devices()[0]
+    state, _, info = ball_on_cloth_xl()
+    topo, cfg, dt = info["topology"], info["config"], info["dt"]
     n = topo.n_particles
-    emit(row="env", backend=jax.default_backend(), n=n, e=topo.n_edges,
-         tets=int(topo.n_tets), cadence=cfg.self_collision_every,
-         backend_contact=cfg.self_collision_backend,
+    emit(row="env", platform=dev.platform, device_kind=dev.device_kind,
+         n=n, e=topo.n_edges, tets=int(topo.n_tets),
+         cadence=cfg.self_collision_every,
+         contact_backend=cfg.self_collision_backend,
          frames_per_call=FRAMES_PER_CALL)
-    assert n >= 10_000, n
 
-    # warm to a contact-rich state so both engines time the same workload.
-    # Exactness gate: the PAIR-ACCURATE dropped-contributions check (0 =>
-    # coverage-identical to the dense backend at this state); the
-    # conservative AABB worst-touch bound is reported alongside — flat
-    # cloth sheets exceed it vacuously (blocks AABB-touch in the thin
-    # axis with every pair beyond 2r).
+    # warm to a contact-rich state; gate exactness there.  The AABB
+    # worst-touch bound is reported alongside: flat cloth sheets exceed it
+    # vacuously (blocks touch in the thin axis with every pair beyond 2r).
     warm = general.make_step(topo, cfg, dt, n_steps=30)(state)
-    ovf = int(blocked_overflow(warm, cfg))
-    dropped = int(blocked_dropped_pairs(warm, cfg))
-    emit(row="warm", aabb_overflow_blocks=ovf, dropped_pairs=dropped,
+    dropped = blocked_dropped_pairs(warm, cfg)
+    emit(row="warm", aabb_overflow_blocks=blocked_overflow(warm, cfg),
+         dropped_pairs=dropped,
          finite=bool(np.isfinite(np.asarray(warm.positions)).all()))
-    assert dropped == 0, \
-        "blocked backend dropped real pairs — raise block_neighbors"
+    if dropped:
+        raise RuntimeError("blocked backend dropped real pairs — raise "
+                           "block_neighbors")
 
-    work = n * FRAMES_PER_CALL * cfg.substeps
-    rows = {}
-    # the fused contact kernel's scoped-VMEM budget wants B=128 at this
-    # scale (its (B, M*B) temporaries); its own cfg re-gates exactness
-    m_pallas = int(os.environ.get("BENCH_BLOCK_NEIGHBORS_PALLAS", "32"))
-    cfg_pk = cfg.replace(self_collision_backend="blocked_pallas",
-                         collision_block_size=128,
-                         block_neighbors=m_pallas)
-    dropped_pk = int(blocked_dropped_pairs(warm, cfg_pk))
-    emit(row="warm_pallas_cfg", block=128, m=m_pallas,
-         dropped_pairs=dropped_pk)
-    assert dropped_pk == 0, "raise BENCH_BLOCK_NEIGHBORS_PALLAS"
-    for backend in ("blocked", "blocked_pallas"):
-        cfg_b = (cfg if backend == "blocked" else cfg_pk)
-        fn_x = general.make_step(topo, cfg_b, dt, n_steps=FRAMES_PER_CALL)
-        rate_x, out_x = measure(fn_x, warm, work)
-        emit(row=f"xla_{backend}_cadence",
-             particle_substeps_per_s=float(f"{rate_x:.4g}"))
-
-        fn_h = mesh_pallas.make_mesh_pallas_step(topo, cfg_b, dt,
-                                                 n_steps=FRAMES_PER_CALL)
-        rate_h, out_h = measure(fn_h, warm, work)
-        emit(row=f"hybrid_{backend}_cadence",
-             particle_substeps_per_s=float(f"{rate_h:.4g}"),
-             speedup_vs_xla=float(f"{rate_h / rate_x:.3f}"))
-        rows[backend] = (rate_x, rate_h, out_x, out_h)
-
-    for backend, (rate_x, rate_h, out_x, out_h) in rows.items():
-        cfg_gate = cfg if backend == "blocked" else cfg_pk
-        for tag, out in (("xla", out_x), ("hybrid", out_h)):
-            p = np.asarray(out.positions)
-            emit(row=f"health_{tag}_{backend}",
-                 finite=bool(np.isfinite(p).all()),
-                 dropped_pairs=int(blocked_dropped_pairs(out, cfg_gate)),
-                 ymin=float(p[:, 1].min()), ymax=float(p[:, 1].max()))
-    best_x = max(r[0] for r in rows.values())
-    best_h = max(r[1] for r in rows.values())
-    emit(row="claim", best_xla=float(f"{best_x:.4g}"),
-         best_hybrid=float(f"{best_h:.4g}"),
-         speedup=float(f"{best_h / best_x:.3f}"))
+    fn = general.make_step(topo, cfg, dt, n_steps=FRAMES_PER_CALL)
+    out = jax.block_until_ready(fn(warm))           # compile
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = jax.block_until_ready(fn(out))
+        best = min(best, time.perf_counter() - t0)
+    p = np.asarray(out.positions)
+    emit(row="general_blocked_cadence",
+         particle_substeps_per_s=n * FRAMES_PER_CALL * cfg.substeps / best,
+         finite=bool(np.isfinite(p).all()),
+         dropped_pairs=blocked_dropped_pairs(out, cfg),
+         ymin=float(p[:, 1].min()), ymax=float(p[:, 1].max()))
 
 
 if __name__ == "__main__":

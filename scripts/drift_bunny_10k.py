@@ -52,7 +52,7 @@ def main():
     topo = build.build_topology(pos, e, 1e-10, hinges=h,
                                 bend_compliance=1e-3, triangles=m.triangles)
     # Quasi-static regime: the trajectory must be CONTRACTING for drift to
-    # measure engine fidelity rather than chaos (BENCHMARKS "Chaos caveat").
+    # measure engine fidelity rather than chaos (ROADMAP.md "Chaos caveat").
     # Probed configurations (fast-oracle sweeps, 2026-08-16):
     #   - free drop on floor (compliance 1e-6, thin pin ring): chaotic,
     #     drift 0.5+ by step 1000;
@@ -95,7 +95,7 @@ def main():
     # to the same rest state); the transient worst is recorded alongside —
     # through the settling phase it can exceed the final number by orders
     # of magnitude (fp noise amplified by the near-chaotic drop transient,
-    # BENCHMARKS.md "Chaos caveat")
+    # ROADMAP.md "Chaos caveat")
     final = float(np.abs(np.asarray(st.positions) - orc.x).max())
     ok = final <= 1e-3 and np.isfinite(orc.x).all()
     with open(OUT, "a") as f:

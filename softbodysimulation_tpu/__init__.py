@@ -1,6 +1,6 @@
-"""softbodysimulation_tpu — TPU-native XPBD soft-body simulation framework.
+"""softbodysimulation_tpu — XPBD soft-body simulation framework in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 Alpaca-Hacker/SoftBodySimulation (Unity/C#/HLSL reference): XPBD particle
 dynamics with distance / dihedral-bending / volume constraints, ground-plane
 and SDF collision, self-collision, graph-colored Gauss-Seidel and batched

@@ -52,12 +52,6 @@ def main(argv=None):
                       help="schedule an impulse at a step, e.g. "
                            "120:0,80,0@0,1,0:0.8 (repeatable; applied "
                            "through the interaction Session)")
-    runp.add_argument("--engine", choices=("auto", "xla", "pallas"),
-                      default="auto",
-                      help="lattice scenes: 'pallas' fuses the whole step "
-                           "in the streamed Mosaic kernel (TPU; the "
-                           "fastest engine), 'auto'/'xla' use the XLA "
-                           "stencil engine")
     runp.add_argument("--platform", default=None,
                       help="force a jax platform (e.g. cpu)")
     runp.add_argument("--set", action="append", default=[],
@@ -109,8 +103,7 @@ def main(argv=None):
     if getattr(args, "overrides", None):
         # generic per-run SolverConfig tweaks (the reference's per-scene
         # SoftBodySettings editability: SoftBodySettings.cs).  The step is
-        # rebuilt on the scene's own engine; --engine pallas below rebuilds
-        # again from the overridden config.
+        # rebuilt on the scene's own engine.
         import enum
 
         cfg = info["config"]
@@ -154,43 +147,6 @@ def main(argv=None):
             from .solvers import general as _gen
 
             step = _gen.make_step(info["topology"], cfg, info["dt"])
-    if getattr(args, "engine", "auto") == "pallas":
-        import jax as _jax
-
-        if _jax.default_backend() != "tpu":
-            # Mosaic needs real TPU hardware; on any other backend (whether
-            # selected by --platform or just the host's default) run the
-            # kernel in interpret mode (debugging / CI).  The context stays
-            # open for the rest of the process — the CLI exits when the run
-            # ends.
-            import contextlib
-
-            from jax.experimental.pallas import tpu as _pltpu
-
-            _stack = contextlib.ExitStack()
-            _stack.enter_context(_pltpu.force_tpu_interpret_mode())
-        if "spec" in info:
-            from .kernels.lattice_pallas import make_pallas_step
-
-            step = make_pallas_step(info["spec"], info["config"],
-                                    info["dt"],
-                                    kin_colliders=info.get("kin_colliders"))
-        else:
-            # mesh scene: the fused mesh-substep kernel (JACOBI +
-            # window-sorted topology; large meshes auto-use the
-            # synthesized one-hot spelling)
-            from .kernels.mesh_pallas import make_mesh_pallas_step
-
-            try:
-                step = make_mesh_pallas_step(
-                    info["topology"], info["config"], info["dt"],
-                    kin_colliders=info.get("kin_colliders"))
-            except NotImplementedError as e:
-                print(f"--engine pallas: this mesh scene is outside the "
-                      f"fused kernel's envelope ({e}); run without "
-                      f"--engine or --set solve_mode=JACOBI",
-                      file=sys.stderr)
-                return 2
     from .diag.profiling import StepTimer
 
     seq_topo = info.get("topology")
@@ -226,24 +182,10 @@ def main(argv=None):
     # the same verbs the library exposes (interact/session.py)
     from .interact.session import Session
 
-    def _rebuild(cfg, _info=info, _engine=getattr(args, "engine", "auto")):
+    def _rebuild(cfg, _info=info):
         # preset hot-swap (watch keys 1/2/3 -> Session.apply_preset):
-        # rebuild the step on the same engine the run selected.  Raises
-        # NotImplementedError when the new config falls outside a fused
-        # kernel's envelope; apply_keys reports that in the status line.
+        # rebuild the step on the scene's engine
         _dt = _info["dt"]
-        if _engine == "pallas":
-            if "spec" in _info:
-                from .kernels.lattice_pallas import make_pallas_step
-
-                return make_pallas_step(
-                    _info["spec"], cfg, _dt,
-                    kin_colliders=_info.get("kin_colliders"))
-            from .kernels.mesh_pallas import make_mesh_pallas_step
-
-            return make_mesh_pallas_step(
-                _info["topology"], cfg, _dt,
-                kin_colliders=_info.get("kin_colliders"))
         if "spec" in _info:
             from .solvers import lattice as _lat
 
@@ -327,9 +269,8 @@ def main(argv=None):
                 extra = ""
                 cfgl = info.get("config")
                 if (cfgl is not None and cfgl.enable_self_collision
-                        and cfgl.self_collision_backend in
-                        ("blocked", "blocked_pallas")):
-                    # exactness sampling for the blocked contact backends:
+                        and cfgl.self_collision_backend == "blocked"):
+                    # exactness sampling for the blocked contact backend:
                     # the AABB bound is conservative (flat sheets exceed it
                     # vacuously), so warn on the PAIR-ACCURATE check —
                     # dropped > 0 means real contact contributions were

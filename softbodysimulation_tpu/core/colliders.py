@@ -9,7 +9,7 @@ Round-3 of this framework froze that world into ``SolverConfig`` constants
 program — a scripted rigid sphere sweeping through a soft body could not be
 expressed without a recompile per pose.
 
-``ColliderSet`` is the TPU-native fix: the collider POSES become traced
+``ColliderSet`` is the compiled-program fix: the collider POSES become traced
 ``SimState`` leaves (a ``(S, 4)`` sphere array, a ``(B, 6)`` box array, a
 scalar ground height), so the same compiled step program serves every pose —
 animate by replacing the leaf between steps (host-side) or by indexing a

@@ -1,6 +1,6 @@
 """Solver configuration.
 
-TPU-native reimagining of the reference's three config tiers
+A JAX reimagining of the reference's three config tiers
 (``SoftBodySettings.cs:5-47``, per-component inspector fields e.g.
 ``SoftBodyGPU.cs:42-71`` / ``SoftBodyCPU.cs:12-39``, and ``SOs/SoftBodyPreset.cs``):
 a single frozen dataclass that is hashable, so it can be passed to ``jax.jit``
@@ -62,7 +62,7 @@ class FloorMode(enum.Enum):
 
 class SolveMode(enum.Enum):
     """JACOBI  — all constraints projected simultaneously, corrections merged by
-                 segment-sum with under-relaxation ``omega`` (the TPU-native
+                 segment-sum with under-relaxation ``omega`` (the data-parallel
                  replacement for the racy free-for-all of
                  ``XPBDSimulatorCS.compute:128-182``).
     COLORED — exact parallel Gauss-Seidel: constraints pre-partitioned into
@@ -110,7 +110,7 @@ class SolverConfig:
                                       # degree; stencil engines: intra-family
                                       # degree 2); 0 => 1.0 (GS-matched)
     distance_backend: str = "auto"    # JACOBI distance-sweep mechanics:
-                                      # "auto" = windowed one-hot MXU matmuls
+                                      # "auto" = windowed one-hot matmuls
                                       # when the topology carries windows,
                                       # else gather/incidence; "gather" /
                                       # "windowed" force one (same
@@ -121,10 +121,9 @@ class SolverConfig:
                                       # topology carries bend_windows)
     tet_backend: str = "gather"       # JACOBI tet-volume-sweep mechanics:
                                       # "gather" (tet_incidence walks; the
-                                      # default — the fused kernels pin
-                                      # bitwise equality against it) or
+                                      # default) or
                                       # "windowed" (4-endpoint signed
-                                      # one-hot MXU sweep; requires
+                                      # one-hot matmul sweep; requires
                                       # topology tet_windows, fp-reordered
                                       # vs gather)
     # Chebyshev semi-iterative acceleration of the Jacobi iterations
@@ -210,20 +209,20 @@ class SolverConfig:
     hash_cell_capacity: int = 8       # max particles examined per cell
     self_collision_omega: float = 0.5
     # "hash": exact 27-cell spatial hash, re-searched every projection
-    # (slow on TPU: the (N,27,K) candidate gather is element-serial).
+    # (an (N,27,K) candidate gather per pass).
     # "sorted": Morton-order sliding window — particles sorted once per
     # substep along a Z-order curve, each checked against its 2*W sorted
     # neighbors with pure dense shifted ops (no gathers in the hot loop).
     # Approximate: pairs adjacent in space but split across a Morton
     # boundary beyond the window are missed for that substep (caught as
     # codes change); the scale path for big self-colliding scenes.
-    # "dense": EXACT all-pairs contact as two MXU matmuls per row block
+    # "dense": EXACT all-pairs contact as two matmuls per row block
     # (dist^2 Gram trick + correction-sum matmul) — zero gathers, zero
-    # capacity caveats; O(N^2) dense flops, the fastest exact path on TPU
-    # up to mid-size N (ops/spatial_hash.self_collision_project_dense).
+    # capacity caveats; O(N^2) dense flops, for small to mid-size N
+    # (ops/spatial_hash.self_collision_project_dense).
     # "blocked": EXACT at scale — Morton-sort into fixed blocks, AABB
     # block-pair culling, top-M neighbor blocks per block, then the dense
-    # MXU formulation per (block x M*block) candidate slab.  O(N*M*B)
+    # matmul formulation per (block x M*block) candidate slab.  O(N*M*B)
     # flops; exact whenever <= block_neighbors blocks overlap any block's
     # reach (overflow is detectable via self_collision_blocked_overflow).
     self_collision_backend: str = "hash"
@@ -251,7 +250,7 @@ class SolverConfig:
     # denominator / both-static epsilon checks) in the LATTICE engines,
     # folding the static validity+parity masks into a single multiplier.
     # Safe when edges never collapse (healthy scenes — the sqrt floor still
-    # prevents NaN); ~15-25% fewer VPU ops per pass.  Guards always stay on
+    # prevents NaN); fewer elementwise ops per pass.  Guards always stay on
     # in the general engine and the oracle.
     fast_math: bool = False
 
@@ -272,10 +271,9 @@ class SolverConfig:
             raise ValueError(
                 "bending_backend must be auto|gather|windowed")
         if self.self_collision_backend not in ("hash", "sorted", "dense",
-                                               "blocked", "blocked_pallas"):
+                                               "blocked"):
             raise ValueError(
-                "self_collision_backend must be hash|sorted|dense|blocked"
-                "|blocked_pallas")
+                "self_collision_backend must be hash|sorted|dense|blocked")
         if self.sorted_window < 1:
             raise ValueError("sorted_window must be >= 1")
         if self.dense_row_block < 1:

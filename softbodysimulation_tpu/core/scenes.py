@@ -70,9 +70,9 @@ def cpu_mesh(dt: float = 0.02, fallback_subdiv: int = 3):
     """Bunny-mesh scene (Scenes/CpuMesh.unity: 15 iterations, compliance
     1e-10, gravity (0,-1,0), bending off, lambda clamp 1e-3).  Falls back to
     a dense icosphere when the bunny OBJ asset is absent.  Built with the
-    color-major windowed ordering so ``--engine pallas`` runs the COLORED
-    sweep fused (the general engine's color-major semantics are unchanged
-    — oracle-parity tested in tests/test_mesh_pallas.py)."""
+    color-major windowed ordering (the general engine's color-major
+    semantics are unchanged — oracle-parity tested in
+    tests/test_engine_parity.py)."""
     m = None
     for p in BUNNY_PATHS:
         if os.path.exists(p):
@@ -96,7 +96,7 @@ def cpu_mesh(dt: float = 0.02, fallback_subdiv: int = 3):
 def spot(dt: float = 0.02, fallback_subdiv: int = 3):
     """Spot-the-cow mesh scene (the reference's second OBJ workload,
     Assets/_Project/Art/Models/spot.obj: 2930 v / 5856 tri).  Same solver
-    shape as cpu_mesh, run on the windowed MXU distance backend.  Falls
+    shape as cpu_mesh, run on the windowed one-hot distance backend.  Falls
     back to an icosphere when the asset is absent."""
     m = None
     for p in SPOT_PATHS:
@@ -124,10 +124,8 @@ def stanford_bunny(dt: float = 1 / 60, fallback_subdiv: int = 4):
     30,338 triangles -> 45,598 edge constraints), loaded by our binary-FBX
     importer (topology/fbxloader.py) at Unity's serialized import scale
     (globalScale 0.005 + useFileScale, stanford-bunny.fbx.meta).  This is
-    the large single-mesh workload: past the fused mesh kernel's
-    resident-matrix budget, so ``--engine pallas`` runs the SYNTHESIZED
-    one-hot spelling.  Falls back to an icosphere when the asset is
-    absent."""
+    the large single-mesh workload.  Falls back to an icosphere when the
+    asset is absent."""
     from ..topology.fbxloader import load_fbx
 
     m = None
@@ -241,9 +239,7 @@ def sphere_sweep(dt: float = 1 / 60, res: int = 8, speed: float = 2.0):
     (``SoftBodyController.cs:110-118``) and its per-substep floor raycast
     (``SoftBodySimulator.cs:777-788``).  The collider pose is a traced
     ``SimState`` leaf (``core/colliders.py``): ``info["animate"]`` updates
-    it per frame and the SAME compiled step program serves every pose, on
-    the stencil engine and — via ``--engine pallas`` +
-    ``info["kin_colliders"]`` — the fused streamed kernel."""
+    it per frame and the SAME compiled step program serves every pose."""
     from .colliders import make_colliders
 
     spec = _lattice.lattice_spec(res, braced=True)
@@ -267,7 +263,7 @@ def sphere_sweep(dt: float = 1 / 60, res: int = 8, speed: float = 2.0):
 
     step = _lat_engine.make_step(spec, cfg, dt)
     return state, step, {"spec": spec, "config": cfg, "dt": dt,
-                         "animate": animate, "kin_colliders": (1, 0)}
+                         "animate": animate}
 
 
 def basic_micro(dt: float = 0.02, mode: str = "butterfly"):
@@ -289,8 +285,8 @@ def cloth(dt: float = 1 / 60, res: int = 16):
     """Hanging cloth: grid plane with edge + dihedral bending constraints,
     top row pinned (the canonical mesh-driven workload of the
     InitializeSoftBodyFromMesh path, exercised as cloth).  Built windowed
-    (RCM-renumbered) so ``--engine pallas`` can fuse it; all engines run
-    windowed topologies identically (tests/test_windowed.py)."""
+    (RCM-renumbered); the gather and windowed backends run it identically
+    (tests/test_windowed.py)."""
     from ..interact import forces as _forces
 
     m = _mesh.grid_plane(1.0, res)
@@ -316,10 +312,8 @@ def cloth(dt: float = 1 / 60, res: int = 16):
 
 def cloth_xl(dt: float = 1 / 60, res: int = 129):
     """Large hanging cloth (default 129x129 = 16.6k particles, ~49k edge
-    constraints): past the fused mesh kernel's resident-matrix budget, so
-    ``--engine pallas`` runs the SYNTHESIZED one-hot spelling
-    (kernels/mesh_pallas.py) — the large-mesh scale the reference's CPU
-    path cannot reach (SoftBodyCPU.cs is single-threaded per constraint)."""
+    constraints) — the large-mesh scale the reference's CPU path cannot
+    reach (SoftBodyCPU.cs is single-threaded per constraint)."""
     return cloth(dt=dt, res=res)
 
 
@@ -358,9 +352,7 @@ def tet_ball(dt: float = 1 / 60, subdiv: int = 2):
     verts, tt = _tets.tets_from_surface_centroid(m.vertices, m.triangles)
     # tet_compliance 0 = incompressible target: fan tets are tiny, so any
     # soft compliance's alpha~ dwarfs their gradient norms and the
-    # pressurization never wins (measured in the round-3 verify drive).
-    # Windowed build (RCM-renumbered) so --engine pallas runs the whole
-    # loop — including the in-kernel per-tet sweep — fused.
+    # pressurization never wins.
     pos2, topo = _build.build_windowed_topology(
         verts, _tets.tet_edges(tt), 1e-4,
         tets=tt, tet_compliance=0.0,
@@ -376,7 +368,9 @@ def tet_ball(dt: float = 1 / 60, subdiv: int = 2):
 
 
 def ball_on_cloth(dt: float = 1 / 60, cloth_res: int = 24,
-                  ball_subdiv: int = 1):
+                  ball_subdiv: int = 1, cloth_size: float = 1.2,
+                  ball_radius: float = 0.18, contact_backend: str = "dense",
+                  contact_every: int = 1, block_neighbors: int = 8):
     """Two soft bodies in contact: a pressurized solid ball dropped onto a
     horizontal cloth pinned around its rim.  Multi-body interaction is a
     COMPOSITION property here, not a feature: both bodies are merged into
@@ -393,13 +387,13 @@ def ball_on_cloth(dt: float = 1 / 60, cloth_res: int = 24,
     from ..topology import tets as _tets
 
     # cloth: XZ grid at y = 1, every rim vertex pinned (a trampoline)
-    cm = _mesh.grid_plane(1.2, cloth_res)
+    cm = _mesh.grid_plane(cloth_size, cloth_res)
     cverts = cm.vertices + np.array([0.0, 1.0, 0.0], np.float32)
     cedges = _tedges.unique_edges(cm.triangles)
     chinges = _tedges.hinges(cm.triangles)
 
     # ball: centroid-fan solid (the tet_ball construction), centered above
-    bm = _mesh.icosphere(ball_subdiv, radius=0.18)
+    bm = _mesh.icosphere(ball_subdiv, radius=ball_radius)
     bverts, btets = _tets.tets_from_surface_centroid(bm.vertices,
                                                      bm.triangles)
     bverts = (bverts + np.array([0.0, 1.45, 0.0])).astype(np.float32)
@@ -408,9 +402,8 @@ def ball_on_cloth(dt: float = 1 / 60, cloth_res: int = 24,
 
     nc = cverts.shape[0]
     # windowed merge: bodies keep their particle index ranges (identity
-    # order) while the merged topology carries the MXU window structure,
-    # so the scene runs FUSED end-to-end on --engine pallas (in-kernel
-    # dense contact) and on the general engine's windowed backend alike
+    # order) while the merged topology carries the one-hot window
+    # structure for the general engine's windowed backend
     pos, topo, _slices = _build.merge_topologies([
         _build.BodySpec(cverts, cedges, 1e-5,                # stiff cloth
                         hinges=chinges, bend_compliance=1e-3,
@@ -422,18 +415,22 @@ def ball_on_cloth(dt: float = 1 / 60, cloth_res: int = 24,
     # neighbours never register contact (derived, so any cloth_res keeps
     # the invariant), while r stays above the per-substep fall distance
     # (~0.007) so the ball cannot tunnel between cloth nodes.
-    spacing = 1.2 / (cloth_res - 1)
+    spacing = cloth_size / (cloth_res - 1)
     particle_radius = round(0.45 * spacing, 4)
     assert 2.0 * particle_radius < spacing
-    assert particle_radius > 0.008, (
-        f"cloth_res={cloth_res}: grid spacing {spacing:.4f} gives a contact "
-        "radius below the per-substep fall distance — the ball would tunnel")
+    if particle_radius <= 0.008:
+        raise ValueError(
+            f"cloth_res={cloth_res}, cloth_size={cloth_size}: grid spacing "
+            f"{spacing:.4f} gives a contact radius below the per-substep "
+            "fall distance — the ball would tunnel; grow cloth_size")
     cfg = SolverConfig(substeps=6, iterations=4, damping=0.02,
                        solve_mode=SolveMode.JACOBI,
                        enable_bending=True,
                        enable_tet_volume=True, tet_pressure=1.05,
                        enable_self_collision=True,
-                       self_collision_backend="dense",
+                       self_collision_backend=contact_backend,
+                       self_collision_every=contact_every,
+                       block_neighbors=block_neighbors,
                        particle_radius=particle_radius,
                        ground_height=0.0, friction=0.3)
     state = state_from_topology(topo, pos)
@@ -444,6 +441,19 @@ def ball_on_cloth(dt: float = 1 / 60, cloth_res: int = 24,
     step = _general.make_step(topo, cfg, dt)
     return state, step, {"topology": topo, "config": cfg, "dt": dt,
                          "n_cloth": nc}
+
+
+def ball_on_cloth_xl(dt: float = 1 / 60):
+    """ball_on_cloth at ~20k particles (140x140 cloth, subdiv-3 ball): the
+    cloth grows in SIZE with its resolution so the derived contact radius
+    stays above the tunneling floor, and contact runs the exact Morton-
+    ``blocked`` backend every 3rd substep — the scale multi-body contact
+    workload.  Sample ``diag.diagnostics.blocked_dropped_pairs`` (0 =>
+    coverage-identical to ``dense``)."""
+    return ball_on_cloth(dt=dt, cloth_res=140, ball_subdiv=3,
+                         cloth_size=3.5, ball_radius=0.3,
+                         contact_backend="blocked", contact_every=3,
+                         block_neighbors=18)
 
 
 SCENES: Dict[str, Callable] = {
@@ -461,5 +471,6 @@ SCENES: Dict[str, Callable] = {
     "tet_ball": tet_ball,
     "solid_lattice": solid_lattice,
     "ball_on_cloth": ball_on_cloth,
+    "ball_on_cloth_xl": ball_on_cloth_xl,
     "sphere_sweep": sphere_sweep,
 }

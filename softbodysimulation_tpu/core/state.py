@@ -101,8 +101,8 @@ _register(
 
 @dataclasses.dataclass(frozen=True)
 class Windows:
-    """Windowed one-hot incidence for the general engine's MXU distance
-    backend (see ``topology/windows.py``).  All block matrices are exact
+    """Windowed one-hot incidence for the general engine's windowed
+    distance backend (see ``topology/windows.py``).  All block matrices are exact
     {0, +-1} one-hots, so the matmul-based sweep matches the gather-based
     sweep to f32 rounding.
 
@@ -233,10 +233,10 @@ class Topology:
     num_colors: int               # static
     num_bend_colors: int          # static
     n_particles: int              # static
-    windows: Optional[Windows] = None   # MXU one-hot distance backend
+    windows: Optional[Windows] = None   # one-hot distance backend
                                         # (requires RCM-renumbered, window
                                         # -sorted edges; build.py wires it)
-    bend_windows: Optional["HingeWindows"] = None  # MXU bending backend
+    bend_windows: Optional["HingeWindows"] = None  # one-hot bending backend
     # --- per-tet volume family (topology/tets.py; None when absent) ---
     tets: Optional[jax.Array] = None            # (T, 4) i32
     rest_tet_volumes: Optional[jax.Array] = None  # (T,) f32 — stored as 6*V0
@@ -245,7 +245,7 @@ class Topology:
     tcol_valid: Optional[jax.Array] = None      # (Ct, Mt) f32
     tet_degree: Optional[jax.Array] = None      # (N,) f32
     tet_incidence: Optional[jax.Array] = None   # (N, Dt) i32 into 4T contribs
-    tet_windows: Optional["HingeWindows"] = None  # MXU tet-sweep backend
+    tet_windows: Optional["HingeWindows"] = None  # one-hot tet-sweep backend
     tet_window_perm: Optional[jax.Array] = None  # (T,) i32 window slot ->
     #                                              original tet id (windows
     #                                              block a min-endpoint-

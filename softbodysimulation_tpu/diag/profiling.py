@@ -3,7 +3,7 @@
 The reference's observability was an FPS overlay and Debug.Log cadence
 (``FPSDisplay.cs``, ``SoftBodyDebugger.cs:118-146``).  Here: ``jax.profiler``
 trace capture for TensorBoard, a steps/sec meter, and a timing harness that
-is honest about async dispatch (synchronises on a host fetch).
+is honest about async dispatch (waits with ``jax.block_until_ready``).
 """
 
 from __future__ import annotations
@@ -14,7 +14,6 @@ import time
 from typing import Callable, Optional
 
 import jax
-import numpy as np
 
 from ..core.state import SimState
 
@@ -59,11 +58,9 @@ def measure_throughput(step_fn: Callable[[SimState], SimState],
                        state: SimState, particles_per_step: int,
                        target_seconds: float = 3.0,
                        max_calls: int = 10_000) -> dict:
-    """Time a jitted step honestly: warm up, then loop and synchronise by
-    FETCHING data to host (``block_until_ready`` alone can be a no-op on
-    remote-execution backends).  Returns a stats dict."""
-    state = step_fn(state)
-    np.asarray(state.positions)  # full sync after warmup
+    """Time a jitted step honestly: warm up, then loop, waiting for the
+    device with ``jax.block_until_ready``.  Returns a stats dict."""
+    state = jax.block_until_ready(step_fn(state))  # compile + warm up
 
     calls = 0
     t0 = time.perf_counter()
@@ -73,10 +70,10 @@ def measure_throughput(step_fn: Callable[[SimState], SimState],
         if calls >= max_calls:
             break
         if calls % 8 == 0:
-            np.asarray(state.positions[0])
+            jax.block_until_ready(state)
             if time.perf_counter() - t0 >= target_seconds:
                 break
-    np.asarray(state.positions)  # final sync: all work done
+    jax.block_until_ready(state)  # all work done
     elapsed = time.perf_counter() - t0
     return {
         "calls": calls,

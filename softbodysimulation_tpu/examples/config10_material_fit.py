@@ -4,10 +4,10 @@ Recovers a soft body's MATERIAL parameters from an observed trajectory:
 a "ground-truth" icosphere is rolled out, the rest lengths are perturbed,
 and gradient descent through the simulator fits them back — the classic
 system-identification workload (estimate stiffness / rest shape from
-motion capture).  The forward rollouts run in the fused Mosaic mesh
-kernel with traced materials; the backward differentiates the XLA
-windowed engine at the same point (``kernels/diff.py``,
-``make_differentiable_material_runner``).  No reference counterpart:
+motion capture).  The rollouts run the general engine's windowed backend
+with the materials as traced inputs, and ``jax.grad`` differentiates
+them (``kernels/diff.py``, ``make_differentiable_material_runner``).  No
+reference counterpart:
 the reference solver (``SoftBodyCPU.cs``) is not differentiable at all.
 """
 
@@ -25,21 +25,11 @@ from ..topology import build, mesh
 from ..topology.edges import unique_edges
 
 
-def run(subdiv: int = 1, n_substeps: int = 6, dt_sub: float = 1 / 240,
-        perturb: float = 0.08, opt_iters: int = 8, seed: int = 0,
-        verbose: bool = True, interpret: bool = None,
-        backward: str = None):
-    """Returns ``(initial_loss, final_loss, err0, err1)`` — the fit must
-    shrink both the trajectory loss and the mean rest-length error.
-
-    ``backward``: ``"fused"`` runs the hand-written Mosaic material
-    backward (in-kernel rest/compliance cotangents, round 5); ``"xla"``
-    differentiates the XLA engine; default picks fused on TPU and xla
-    elsewhere (interpret-mode Pallas is too slow for the fit loop)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if backward is None:
-        backward = "xla" if interpret else "fused"
+def material_problem(subdiv: int = 1, n_substeps: int = 6,
+                     dt_sub: float = 1 / 240, perturb: float = 0.08,
+                     seed: int = 0):
+    """``(loss, rest0, truth)``: the trajectory loss as a function of the
+    rest lengths, the perturbed starting guess and the ground truth."""
     m = mesh.icosphere(subdiv)
     pos, topo = build.build_windowed_topology(
         m.vertices, unique_edges(m.triangles), 1e-4, triangles=m.triangles)
@@ -48,17 +38,8 @@ def run(subdiv: int = 1, n_substeps: int = 6, dt_sub: float = 1 / 240,
                        distance_backend="windowed", ground_height=-2.0)
     st = state_from_topology(topo, pos + np.array([0, 0.5, 0], np.float32))
 
-    def _build():
-        return make_differentiable_material_runner(
-            topo, cfg, dt_sub, n_substeps, block_edges=128,
-            backward=backward)
-
-    if interpret:
-        from jax.experimental.pallas import tpu as pltpu
-        with pltpu.force_tpu_interpret_mode():
-            rollout = _build()
-    else:
-        rollout = _build()
+    rollout = make_differentiable_material_runner(topo, cfg, dt_sub,
+                                                  n_substeps)
 
     truth = topo.rest_lengths
     target = rollout(st, {"rest_lengths": truth,
@@ -70,8 +51,18 @@ def run(subdiv: int = 1, n_substeps: int = 6, dt_sub: float = 1 / 240,
         return jnp.sum((out.positions - target) ** 2)
 
     rng = np.random.default_rng(seed)
-    rest = truth * jnp.asarray(
+    rest0 = truth * jnp.asarray(
         1.0 + perturb * rng.standard_normal(truth.shape), jnp.float32)
+    return loss, rest0, truth
+
+
+def run(subdiv: int = 1, n_substeps: int = 6, dt_sub: float = 1 / 240,
+        perturb: float = 0.08, opt_iters: int = 8, seed: int = 0,
+        verbose: bool = True):
+    """Returns ``(initial_loss, final_loss, err0, err1)`` — the fit must
+    shrink both the trajectory loss and the mean rest-length error."""
+    loss, rest, truth = material_problem(subdiv, n_substeps, dt_sub,
+                                         perturb, seed)
     err0 = float(jnp.abs(rest - truth).mean())
     l0 = float(loss(rest))
     vg = jax.value_and_grad(loss)

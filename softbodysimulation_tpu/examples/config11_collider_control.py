@@ -7,8 +7,8 @@ target.  The loss differentiates through the whole rollout — collider
 SDF projection, friction against the moving collider's velocity frame,
 floor contact, constraint projection — back to the sweep parameters.
 
-This is the differentiable composition of two round-4 capabilities: the
-traced rigid world (``core/colliders.ColliderSet`` — the counterpart of
+This is the differentiable composition of two capabilities: the traced
+rigid world (``core/colliders.ColliderSet`` — the counterpart of
 the reference's moving PhysX colliders, ``SoftBodyController.cs:110-118``)
 and ``interact.animator.kinematic_rollout``.  The reference can script a
 collider but has no gradient path; here the scripted collider IS the
@@ -45,48 +45,22 @@ def _sweep_traj(params, n_steps: int, start_x: float, radius: float):
 
 def run(res: int = 4, steps: int = 50, dt: float = 1 / 60,
         target=(0.55, 0.25), lr: float = 0.8, opt_iters: int = 30,
-        radius: float = 0.28, verbose: bool = True, engine: str = "auto"):
+        radius: float = 0.28, verbose: bool = True):
     """Returns (learned params, loss history).  ``target`` is the goal
-    (x, z) for the soft cube's final centre of mass.
-
-    ``engine``: ``"fused"`` runs the whole thing on the fused Mosaic
-    kernels — forward AND backward, with the collider-pose cotangents
-    computed in-kernel (``kernels.mesh_diff_pallas``, round 5); ``"xla"``
-    keeps the general engine; ``"auto"`` picks fused on TPU (interpret-
-    mode Pallas on CPU is too slow for the optimisation loop)."""
-    if engine not in ("auto", "xla", "fused"):
-        raise ValueError(f"engine must be auto|xla|fused, got {engine!r}")
-    if engine == "auto":
-        engine = "fused" if jax.default_backend() == "tpu" else "xla"
+    (x, z) for the soft cube's final centre of mass."""
     pos = np.asarray(lattice.lattice_points(res, center=(0.0, 0.5, 0.0)),
                      np.float32)
     edges, comp = lattice.lattice_edges(res)
     cfg = SolverConfig(
         substeps=2, iterations=3, damping=0.02,
         solve_mode=SolveMode.JACOBI, lambda_mode=LambdaMode.RESET,
-        gravity_is_acceleration=True, ground_height=0.0, friction=0.4,
-        **({"distance_backend": "windowed"} if engine == "fused" else {}))
-    if engine == "fused":
-        # fused path needs the windowed (RCM + sorted-edge) topology;
-        # positions come back renumbered
-        pos, topo = build.build_windowed_topology(pos, edges, comp,
-                                                  block_edges=128)
-    else:
-        topo = build.build_topology(pos, edges, comp)
+        gravity_is_acceleration=True, ground_height=0.0, friction=0.4)
+    topo = build.build_topology(pos, edges, comp)
     start_x = -1.2
     state0 = state_from_topology(topo, pos).replace(
         colliders=make_colliders(spheres=[(start_x, 0.5, 0.0, radius)],
                                  ground_height=0.0))
-    if engine == "fused":
-        from ..kernels.diff import make_differentiable_mesh_runner
-
-        # one frame = substeps raw substeps (ext stays zero in this
-        # workload, so the step-lifecycle difference is inert)
-        step = make_differentiable_mesh_runner(
-            topo, cfg, dt / cfg.substeps, cfg.substeps,
-            backward="fused", kin_colliders=(1, 0), block_edges=128)
-    else:
-        step = general.make_step(topo, cfg, dt)
+    step = general.make_step(topo, cfg, dt)
     target = jnp.asarray(target, jnp.float32)
 
     def loss(params):

@@ -15,17 +15,17 @@ import jax
 import jax.numpy as jnp
 
 from ..core.config import LambdaMode, SolveMode, SolverConfig
+from ..kernels.diff import make_differentiable_lattice_step
 from ..solvers import lattice as lat_engine
 from ..topology import lattice
 
 
 def run(res: int = 3, steps: int = 60, dt: float = 1 / 60,
         target=(1.5, 0.4, 0.0), lr: float = 4.0, opt_iters: int = 40,
-        verbose: bool = True, engine: str = "xla"):
-    """``engine='pallas'`` runs the forward rollout through the fused
-    Mosaic kernel with the XLA engine as the custom-VJP backward
-    (``kernels/diff.py``) — the primal gets the kernel speedup, the
-    gradient stays exact for the XLA semantics both engines share."""
+        verbose: bool = True):
+    """The rollout is ``kernels.diff.make_differentiable_lattice_step``:
+    ``steps`` frames of the stencil engine, differentiated by reverse
+    mode."""
     spec = lattice.lattice_spec(res, braced=True)
     cfg = SolverConfig(
         substeps=2, iterations=2, damping=0.01,
@@ -34,14 +34,7 @@ def run(res: int = 3, steps: int = 60, dt: float = 1 / 60,
     state0 = lat_engine.make_lattice_state(spec, center=(0.0, 0.6, 0.0))
     target = jnp.asarray(target, jnp.float32)
 
-    if engine == "pallas":
-        from ..kernels.diff import make_differentiable_lattice_runner
-
-        rollout = make_differentiable_lattice_runner(
-            spec, cfg, dt / cfg.substeps, steps * cfg.substeps)
-    else:
-        def rollout(s):
-            return lat_engine.multi_step_fn(s, spec, cfg, dt, steps)
+    rollout = make_differentiable_lattice_step(spec, cfg, dt, steps)
 
     def loss(v0):
         s = state0.replace(

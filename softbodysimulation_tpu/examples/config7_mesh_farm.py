@@ -1,13 +1,12 @@
-"""Example 7 — a mesh farm on the MXU: an ensemble of OBJ soft bodies on
-the windowed one-hot distance backend, vmapped over the body axis (and
-shardable over chips via ``parallel.batch.make_sharded_general_step``),
-with the Morton sorted-window self-collision path shown on the side.
+"""Example 7 — a mesh farm: an ensemble of OBJ soft bodies on the windowed
+one-hot distance backend, vmapped over the body axis (and shardable over
+chips via ``parallel.batch.make_sharded_general_step``), with the Morton
+sorted-window self-collision path shown on the side.
 
 The windowed backend reformulates the Jacobi sweep as exact {0,±1} one-hot
-block matmuls (RCM reorder + min-endpoint-sorted edge blocks), so the MXU
-does the gather/scatter work and the one-hot matrices are shared across
-the whole ensemble — measured 1.76e8 particle-substeps/s for 64 bunnies on
-one chip (BENCHMARKS.md).
+block matmuls (RCM reorder + min-endpoint-sorted edge blocks), so matrix
+units do the gather/scatter work and the one-hot matrices are shared
+across the whole ensemble.
 """
 
 from __future__ import annotations
@@ -47,29 +46,6 @@ def run(n_bodies: int = 8, steps: int = 120, dt: float = 1 / 60,
     out = fn(batched)
     p = np.asarray(out.positions)
     assert np.isfinite(p).all()
-
-    # round-3 upgrade: the same farm in ONE fused Mosaic kernel — bodies
-    # stacked on the sublane axis so the one-hot gather/scatter dots run
-    # with 3B rows instead of 3 (9.5-15x the single-body kernel, 12-19x
-    # this vmap on hardware — BENCHMARKS.md).  inv_mass is the shared
-    # (n,) leaf; on CPU the kernel runs in interpret mode (keep it short).
-    import contextlib
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ..kernels import mesh_pallas
-
-    ctx = (contextlib.nullcontext() if jax.default_backend() == "tpu"
-           else pltpu.force_tpu_interpret_mode())
-    kernel_substeps = (steps * cfg.substeps
-                       if jax.default_backend() == "tpu" else cfg.substeps)
-    with ctx:
-        fused = mesh_pallas.make_mesh_substep_runner(
-            topo, cfg, dt / cfg.substeps, kernel_substeps,
-            with_ext=True, n_bodies=n_bodies)
-        out_k = fused(out.replace(inv_mass=base.inv_mass))
-    pk = np.asarray(out_k.positions)
-    assert np.isfinite(pk).all()
 
     # side dish: two of the bodies dropped into each other with the
     # sorted-window self-collision backend

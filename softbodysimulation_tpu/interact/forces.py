@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from ..core.state import SimState
 
@@ -73,8 +74,9 @@ def add_wind(state: SimState, topo, direction, strength: float = 1.0,
     d = jnp.asarray(direction, dtype=state.positions.dtype)
     d = d / jnp.maximum(jnp.linalg.norm(d), 1e-9)
     normals = vertex_normals(state.positions, topo.triangles)
-    # projection magnitude; abs() so both sides of a sheet catch wind
-    catch = jnp.abs(normals @ d)
+    # projection magnitude; abs() so both sides of a sheet catch wind.
+    # HIGHEST: a DEFAULT-precision f32 dot may run in TF32 on a GPU
+    catch = jnp.abs(jnp.matmul(normals, d, precision=lax.Precision.HIGHEST))
     mag = strength * catch
     if gustiness > 0:
         key = jax.random.PRNGKey(seed)

@@ -1,6 +1,6 @@
 """Non-blocking keyboard input for the live ``run --watch`` loop.
 
-The TPU-native answer to the reference's human-in-the-loop interaction
+The headless answer to the reference's human-in-the-loop interaction
 (``SoftBodyInteractor.cs:37-67``: Space = upward impulse, P/U = pin/unpin,
 held-key drag; ``SoftBodyController.cs:56-80``: R = reset) minus the mouse
 ray — headless terminals have no cursor-to-world ray, so directional pokes

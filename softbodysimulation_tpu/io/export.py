@@ -56,7 +56,7 @@ def export_npz(path: str, state: SimState, topo: Topology) -> None:
 
 
 class AsyncExporter:
-    """Overlapped export pipeline — the honest TPU-native analog of the
+    """Overlapped export pipeline — the honest device-side analog of the
     reference's double-buffered ``AsyncGPUReadback`` (``SoftBodySimulator.cs:
     793-823``).
 

@@ -1,1 +1,1 @@
-from . import lattice_pallas
+"""Differentiable rollout factories over the XLA engines (``diff``)."""

@@ -1,99 +1,19 @@
-"""Differentiable fused kernels: custom-VJP pairing of a Pallas forward
-with the XLA engine's backward.
+"""Differentiable rollouts over the XLA engines.
 
-The fused Mosaic kernels (``lattice_pallas``, ``mesh_pallas``) are the
-fastest engines but Mosaic programs carry no autodiff rules, so they would
-silently exit the differentiable-rollout story (``jax.grad`` through whole
-simulations, examples/config6_diffsim.py).  The two implementations are
-semantically identical to their XLA twins — cross-checked by the
-interpret-mode equivalence suites and on hardware (BENCHMARKS.md) — so the
-honest gradient of the kernel IS the gradient of the XLA engine evaluated
-at the same point:
-
-  forward  — the Pallas kernel (fast primal);
-  backward — ``jax.vjp`` of the XLA engine's rollout, linearized at the
-             SAME input state.
-
-The cotangent is exact for the XLA engine and correct for the kernel up to
-the engines' fp-level output difference (~1e-6 positions over thousands of
-substeps) — the standard straight-through-at-equal-semantics construction.
-The backward replays the forward rollout once (reverse-mode through a
-``lax.scan`` checkpoints per step), so grad cost matches differentiating
-the XLA engine directly; only the primal gets the kernel speedup — exactly
-what optimisation loops (many forward evaluations per gradient) want.
+Each ``make_differentiable_*`` factory returns a jitted rollout whose
+forward is the stencil engine (``solvers/lattice``) or the general engine
+(``solvers/general``) scanned over substeps or frames, so ``jax.grad``
+differentiates exactly the trajectory the forward computed.
+``remat_chunk`` bounds reverse-mode memory (see ``_substep_rollout``).
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from ..core.state import SimState
-
-
-def pair_with_vjp(kernel_fn, xla_fn):
-    """Return ``kernel_fn`` wrapped so reverse-mode AD flows through
-    ``xla_fn``'s VJP.  Both must be ``SimState -> SimState`` with the same
-    semantics (e.g. a fused Pallas runner and its XLA-engine twin built
-    from the same (topology, config, dt, n_substeps))."""
-
-    @jax.custom_vjp
-    def run(state: SimState) -> SimState:
-        return kernel_fn(state)
-
-    def fwd(state: SimState):
-        return kernel_fn(state), state
-
-    def bwd(state: SimState, ct):
-        _, vjp = jax.vjp(xla_fn, state)
-        return vjp(ct)
-
-    run.defvjp(fwd, bwd)
-    return run
-
-
-def pair_with_vjp_params(kernel_fn, xla_fn):
-    """``pair_with_vjp`` for runners that take a second differentiable
-    argument (a params pytree, e.g. materials): forward runs
-    ``kernel_fn(state, params)``, reverse-mode flows through
-    ``xla_fn(state, params)``'s VJP — cotangents reach BOTH the state
-    leaves and the params leaves."""
-
-    @jax.custom_vjp
-    def run(state: SimState, params):
-        return kernel_fn(state, params)
-
-    def fwd(state: SimState, params):
-        return kernel_fn(state, params), (state, params)
-
-    def bwd(res, ct):
-        state, params = res
-        _, vjp = jax.vjp(xla_fn, state, params)
-        return vjp(ct)
-
-    run.defvjp(fwd, bwd)
-    return run
-
-
-def _guard_exact_forward(pallas_kw: dict):
-    """The pairing contract requires the EXACT-math kernel forward.
-
-    ``pair_with_vjp`` is the straight-through gradient at EQUAL forward
-    semantics: the cotangent is the XLA engine's VJP linearized at the
-    same input, valid because kernel and engine compute the same function
-    to fp noise.  ``approx_math=True`` changes the kernel's arithmetic
-    (rsqrt / approximate reciprocal), so the primal and the linearization
-    point drift apart over a rollout and the returned gradient would be
-    the gradient of a DIFFERENT (exact) trajectory — silently wrong for
-    tight fitting loops.  Guarded explicitly rather than documented-only
-    (round-3 verdict item)."""
-    if pallas_kw.get("approx_math", False):
-        raise NotImplementedError(
-            "differentiable paired runners require the exact-math kernel "
-            "forward: approx_math changes the kernel's arithmetic, so the "
-            "XLA backward would be linearized at a drifted trajectory. "
-            "Drop approx_math for gradient work (the exact forward still "
-            "carries the fused-kernel speedup).")
 
 
 def _check_chunk(n_substeps: int, remat_chunk: int):
@@ -111,13 +31,11 @@ def _substep_rollout(substep_fn, n_substeps: int, remat_chunk: int = 0):
     reverse-mode then stores only the N/K chunk-boundary states plus one
     in-flight chunk (O(N/K + K) carries instead of O(N)), recomputing each
     chunk's forward once during the backward — the standard sqrt-memory
-    rematerialisation tradeoff that makes gradients through LONG rollouts
-    fit in HBM (a 64k-particle body at 2000 substeps would otherwise hold
-    ~9 GB of carries).  Arithmetic is unchanged (the recomputation replays
-    identical ops), so gradients match the flat scan exactly.  Only used
-    on the backward engine: the nested scan compiles slowly (CLAUDE.md's
-    one-scan-level rule is for benchmarked primal paths)."""
-    from jax import lax
+    rematerialisation tradeoff that makes gradients through long rollouts
+    fit in device memory (a 64k-particle body at 2000 substeps would
+    otherwise hold ~9 GB of carries).  Arithmetic is unchanged (the
+    recomputation replays identical ops), so gradients match the flat scan
+    exactly."""
 
     def body(carry, _):
         return substep_fn(carry), None
@@ -147,90 +65,47 @@ def _substep_rollout(substep_fn, n_substeps: int, remat_chunk: int = 0):
     return roll
 
 
+def _chunked(make_k, n: int, remat_chunk: int):
+    """``make_k(n)`` flat, or ``n // remat_chunk`` checkpointed calls of
+    ``make_k(remat_chunk)``."""
+    _check_chunk(n, remat_chunk)
+    if remat_chunk and 0 < remat_chunk < n:
+        return jax.jit(_substep_rollout(jax.checkpoint(make_k(remat_chunk)),
+                                        n // remat_chunk))
+    return make_k(n)
+
+
+def _mesh_substeps(topo, cfg, dt_sub: float, n_substeps: int,
+                   remat_chunk: int):
+    """Raw general-engine substeps (no external-force lifecycle)."""
+    from ..solvers import general
+
+    return _substep_rollout(
+        lambda s: general._substep(s, topo, cfg, dt_sub, apply_ext=False),
+        n_substeps, remat_chunk)
+
+
 def make_differentiable_lattice_runner(spec, cfg, dt_sub: float,
                                        n_substeps: int,
-                                       remat_chunk: int = 0, **pallas_kw):
-    """Differentiable fused lattice rollout: streamed Pallas kernel forward
-    (resident fallback), XLA stencil engine backward (``remat_chunk``
-    bounds the backward's memory — see ``_substep_rollout``)."""
-    _guard_exact_forward(pallas_kw)
+                                       remat_chunk: int = 0):
+    """Differentiable raw-substep lattice rollout on the stencil engine
+    (``solvers/lattice.make_substep_runner`` semantics)."""
     from ..solvers import lattice as lat_engine
-    from . import lattice_pallas
 
-    try:
-        pal = lattice_pallas.make_pallas_substep_runner_streamed(
-            spec, cfg, dt_sub, n_substeps, **pallas_kw)
-    except NotImplementedError:
-        pal = lattice_pallas.make_pallas_substep_runner(
-            spec, cfg, dt_sub, n_substeps)
-    _check_chunk(n_substeps, remat_chunk)
-    if remat_chunk and 0 < remat_chunk < n_substeps:
-        ref_k = lat_engine.make_substep_runner(spec, cfg, dt_sub,
-                                               remat_chunk)
-        ref = jax.jit(_substep_rollout(jax.checkpoint(ref_k),
-                                       n_substeps // remat_chunk))
-    else:
-        ref = lat_engine.make_substep_runner(spec, cfg, dt_sub, n_substeps)
-    return pair_with_vjp(pal, ref)
+    return _chunked(
+        lambda k: lat_engine.make_substep_runner(spec, cfg, dt_sub, k),
+        n_substeps, remat_chunk)
 
 
 def make_differentiable_mesh_runner(topo, cfg, dt_sub: float,
                                     n_substeps: int,
-                                    remat_chunk: int = 0,
-                                    backward: str = "xla", **pallas_kw):
-    """Differentiable fused mesh rollout.
-
-    ``backward`` selects the reverse-mode construction:
-
-    * ``"xla"`` (default) — mesh Pallas kernel forward, general-engine
-      (windowed backend) VJP backward; covers the full kernel envelope
-      and every cotangent (incl. inv_mass); ``remat_chunk`` bounds the
-      backward's memory (see ``_substep_rollout``).
-    * ``"fused"`` — the hand-written Mosaic backward
-      (``kernels.mesh_diff_pallas``): replay + cotangent sweeps run as
-      fused chunk kernels, ~4x the XLA backward's device throughput on
-      the bunny (BENCHMARKS.md "Differentiable performance").  Restricted
-      envelope (JACOBI, RESET/DECAY/WARM_START, distance + floor +
-      sphere colliders — incl. ``kin_colliders`` traced poses WITH pose
-      cotangents) and zero inv_mass/ext_force cotangents; raises
-      NotImplementedError outside it.  ``remat_chunk`` maps to the
-      backward's chunk size.
-    * ``"auto"`` — ``"fused"`` when the envelope fits, else ``"xla"``."""
-    if backward not in ("xla", "fused", "auto"):
-        raise ValueError(f"backward must be xla|fused|auto, got {backward}")
-    _guard_exact_forward(pallas_kw)
-    if backward != "xla":
-        from . import mesh_diff_pallas as mdp
-
-        try:
-            return mdp.make_fused_differentiable_mesh_runner(
-                topo, cfg, dt_sub, n_substeps,
-                chunk_substeps=(remat_chunk if remat_chunk
-                                and 0 < remat_chunk < n_substeps else None),
-                **{k: v for k, v in pallas_kw.items()
-                   if k in ("block_edges", "synth_gd", "kin_colliders")})
-        except NotImplementedError:
-            if backward == "fused":
-                raise
-    from ..solvers import general
-    from . import mesh_pallas
-
-    pal = mesh_pallas.make_mesh_substep_runner(
-        topo, cfg, dt_sub, n_substeps, **pallas_kw)
-    ref = jax.jit(_substep_rollout(
-        lambda s: general._substep(s, topo, cfg, dt_sub, apply_ext=False),
-        n_substeps, remat_chunk))
-    return pair_with_vjp(pal, ref)
-
-
-def _chunked_step_ref(make_step_k, n_steps: int, remat_chunk: int):
-    """Flat or chunked-checkpoint full-step backward (chunk unit: frames)."""
-    _check_chunk(n_steps, remat_chunk)
-    if remat_chunk and 0 < remat_chunk < n_steps:
-        step_k = make_step_k(remat_chunk)
-        return jax.jit(_substep_rollout(jax.checkpoint(step_k),
-                                        n_steps // remat_chunk))
-    return make_step_k(n_steps)
+                                    remat_chunk: int = 0):
+    """Differentiable raw-substep mesh rollout on the general engine:
+    cotangents reach every SimState leaf (incl. ``inv_mass``) and, for a
+    state carrying a ``ColliderSet``, the collider poses."""
+    _check_chunk(n_substeps, remat_chunk)
+    return jax.jit(_mesh_substeps(topo, cfg, dt_sub, n_substeps,
+                                  remat_chunk))
 
 
 def make_differentiable_lattice_step(spec, cfg, dt: float, n_steps: int = 1,
@@ -238,99 +113,53 @@ def make_differentiable_lattice_step(spec, cfg, dt: float, n_steps: int = 1,
     """Differentiable FULL-STEP lattice rollout: ``n_steps`` frames with
     the reference external-force lifecycle (``ext_force`` consumed on each
     frame's first substep, zeroed after) — the control workload: a policy
-    writes forces into the state, the rollout runs fused, and gradients
-    flow back to the forces.  Forward is ``make_pallas_step`` (which also
-    routes contact-cadence self-collision configs to the hybrid runner),
-    backward the stencil engine's ``make_step``."""
+    writes forces into the state and gradients flow back to the forces.
+    ``remat_chunk`` counts frames."""
     from ..solvers import lattice as lat_engine
-    from . import lattice_pallas
 
-    pal = lattice_pallas.make_pallas_step(spec, cfg, dt, n_steps=n_steps)
-    ref = _chunked_step_ref(
-        lambda k: lat_engine.make_step(spec, cfg, dt, k),
-        n_steps, remat_chunk)
-    return pair_with_vjp(pal, ref)
+    return _chunked(lambda k: lat_engine.make_step(spec, cfg, dt, k),
+                    n_steps, remat_chunk)
 
 
 def make_differentiable_mesh_step(topo, cfg, dt: float, n_steps: int = 1,
                                   remat_chunk: int = 0):
-    """Differentiable FULL-STEP mesh rollout (external-force lifecycle;
-    contact-cadence self-collision configs route to the fused hybrid
-    runner): forward ``make_mesh_pallas_step``, backward the general
-    engine's ``make_step`` — so self-colliding scenes join the
-    differentiable story end-to-end."""
+    """Differentiable FULL-STEP mesh rollout (external-force lifecycle,
+    contact cadence and self-collision as ``general.make_step``)."""
     from ..solvers import general
-    from . import mesh_pallas
 
-    pal = mesh_pallas.make_mesh_pallas_step(topo, cfg, dt, n_steps=n_steps)
-    ref = _chunked_step_ref(
-        lambda k: general.make_step(topo, cfg, dt, k),
-        n_steps, remat_chunk)
-    return pair_with_vjp(pal, ref)
+    return _chunked(lambda k: general.make_step(topo, cfg, dt, k),
+                    n_steps, remat_chunk)
+
+
+def _with_materials(topo, materials):
+    return topo.replace(
+        rest_lengths=jnp.asarray(materials["rest_lengths"], jnp.float32),
+        compliance=jnp.asarray(materials["compliance"], jnp.float32))
 
 
 def make_differentiable_material_runner(topo, cfg, dt_sub: float,
                                         n_substeps: int,
-                                        remat_chunk: int = 0,
-                                        backward: str = "auto",
-                                        **pallas_kw):
+                                        remat_chunk: int = 0):
     """Differentiable-in-MATERIALS mesh rollout: returns
     ``fn(state, materials) -> SimState`` with
-    ``materials = {"rest_lengths": (E,), "compliance": (E,)}`` (topo edge
-    order).  Forward runs the fused mesh kernel with the material slabs
-    rebuilt from the traced vectors — gradients reach the state leaves
-    AND both material vectors.  The material-fitting workload (estimate
-    stiffness / rest shape from observed trajectories) with the fused
-    kernel carrying the many forward evaluations; the reference has no
-    analog (its solver is not differentiable at all).
-
-    ``backward``: ``"fused"`` runs the hand-written Mosaic backward with
-    in-kernel material cotangents (``mesh_diff_pallas.
-    make_fused_differentiable_material_runner``; restricted envelope —
-    raises outside it); ``"xla"`` differentiates the XLA general engine
-    at ``topo.replace(rest_lengths=..., compliance=...)``; ``"auto"``
-    (default) prefers fused, falling back to xla."""
-    if backward not in ("xla", "fused", "auto"):
-        raise ValueError(f"backward must be xla|fused|auto, got {backward}")
-    _guard_exact_forward(pallas_kw)
+    ``materials = {"rest_lengths": (E,), "compliance": (E,)}`` (topology
+    edge order).  Gradients reach the state leaves AND both material
+    vectors — the material-fitting workload (estimate stiffness / rest
+    shape from observed trajectories); the reference has no analog (its
+    solver is not differentiable at all)."""
     _check_chunk(n_substeps, remat_chunk)
-    if backward != "xla":
-        from . import mesh_diff_pallas as mdp
-
-        try:
-            return mdp.make_fused_differentiable_material_runner(
-                topo, cfg, dt_sub, n_substeps,
-                chunk_substeps=(remat_chunk if remat_chunk
-                                and 0 < remat_chunk < n_substeps else None),
-                **{k: v for k, v in pallas_kw.items()
-                   if k in ("block_edges", "synth_gd")})
-        except NotImplementedError:
-            if backward == "fused":
-                raise
-    from ..solvers import general
-    from . import mesh_pallas
-
-    pal = mesh_pallas.make_mesh_substep_runner(
-        topo, cfg, dt_sub, n_substeps, **pallas_kw)
 
     @jax.jit
-    def ref(state: SimState, materials) -> SimState:
-        t2 = topo.replace(
-            rest_lengths=jnp.asarray(materials["rest_lengths"],
-                                     jnp.float32),
-            compliance=jnp.asarray(materials["compliance"], jnp.float32))
-        roll = _substep_rollout(
-            lambda c: general._substep(c, t2, cfg, dt_sub,
-                                       apply_ext=False),
-            n_substeps, remat_chunk)
-        return roll(state)
+    def run(state: SimState, materials) -> SimState:
+        return _mesh_substeps(_with_materials(topo, materials), cfg, dt_sub,
+                              n_substeps, remat_chunk)(state)
 
-    return pair_with_vjp_params(pal, ref)
+    return run
 
 
-# single-body rank per SimState leaf — used to spot leaves the batched
-# kernel contract lets stay shared/single-body (read-only inv_mass,
-# scalar lambda_volume when the volume constraint is off, ...)
+# single-body rank per SimState leaf — used to spot leaves a batched state
+# may keep shared across bodies (read-only inv_mass, scalar lambda_volume
+# when the volume constraint is off, ...)
 _LEAF_RANK = {"positions": 2, "velocities": 2, "ext_force": 2,
               "inv_mass": 1, "lambda_dist": 1, "lambda_bend": 1,
               "lambda_volume": 0, "lambda_tet": 1}
@@ -338,10 +167,10 @@ _LEAF_RANK = {"positions": 2, "velocities": 2, "ext_force": 2,
 
 def _vmap_batched(one, state: SimState, *args) -> SimState:
     """``jax.vmap`` of a single-body rollout over a batched SimState whose
-    contract-legal shared leaves lack the body axis: broadcast those for
-    the vmap (their cotangents sum back over bodies through the VJP) and
-    restore the passthrough shape on output.  Extra ``args`` must already
-    carry the body axis."""
+    shared leaves lack the body axis: broadcast those for the vmap (their
+    cotangents sum back over bodies through the VJP) and restore the
+    shared shape on output.  Extra ``args`` must already carry the body
+    axis."""
     nb = state.positions.shape[0]
     shared = [k for k, r in _LEAF_RANK.items()
               if getattr(state, k) is not None
@@ -356,75 +185,44 @@ def _vmap_batched(one, state: SimState, *args) -> SimState:
 
 def make_differentiable_material_ensemble_runner(topo, cfg, dt_sub: float,
                                                  n_substeps: int,
-                                                 n_bodies: int,
-                                                 remat_chunk: int = 0,
-                                                 **pallas_kw):
+                                                 remat_chunk: int = 0):
     """Differentiable heterogeneous-MATERIAL farm: ``fn(state, materials)``
-    where the SimState leaves are batched ``(B, ...)`` and ``materials``
-    carries per-body ``(B, E)`` rest_lengths / compliance.  Forward runs
-    the fused ensemble kernel with per-body material slabs (they gain the
-    sublane-row axis exactly like the lambda slabs); backward vmaps the
-    XLA engine over (state, materials).  The population-based material
-    search / per-instance fitting workload: B candidate materials advance
-    in ONE kernel call, and gradients come back per body."""
-    _guard_exact_forward(pallas_kw)
+    where the SimState leaves are batched ``(B, ...)`` (``inv_mass`` may
+    stay the shared ``(n,)`` leaf) and ``materials`` carries per-body
+    ``(B, E)`` rest_lengths / compliance.  The general engine is vmapped
+    over (state, materials), so gradients come back per body — the
+    population-based material search workload."""
     _check_chunk(n_substeps, remat_chunk)
-    from ..solvers import general
-    from . import mesh_pallas
-
-    pal = mesh_pallas.make_mesh_substep_runner(
-        topo, cfg, dt_sub, n_substeps, n_bodies=n_bodies, batched=True,
-        **pallas_kw)
 
     def one(state: SimState, rest, comp) -> SimState:
         t2 = topo.replace(rest_lengths=rest, compliance=comp)
-        roll = _substep_rollout(
-            lambda c: general._substep(c, t2, cfg, dt_sub,
-                                       apply_ext=False),
-            n_substeps, remat_chunk)
-        return roll(state)
+        return _mesh_substeps(t2, cfg, dt_sub, n_substeps,
+                              remat_chunk)(state)
 
     @jax.jit
-    def ref(state: SimState, materials) -> SimState:
+    def run(state: SimState, materials) -> SimState:
         return _vmap_batched(one, state,
                              jnp.asarray(materials["rest_lengths"],
                                          jnp.float32),
                              jnp.asarray(materials["compliance"],
                                          jnp.float32))
 
-    return pair_with_vjp_params(pal, ref)
+    return run
 
 
 def make_differentiable_mesh_ensemble_runner(topo, cfg, dt_sub: float,
                                              n_substeps: int,
-                                             n_bodies: int,
-                                             remat_chunk: int = 0,
-                                             **pallas_kw):
-    """Differentiable HETEROGENEOUS mesh farm: fused ensemble kernel
-    forward (``per_body_mass=True`` — ``inv_mass`` is a per-body (B, n)
-    leaf; replicate it for homogeneous farms), vmapped general-engine
-    backward.  Gradients flow to every batched leaf INCLUDING the
-    per-body masses — the system-identification workload: fit per-instance
-    masses/pins against observations with the fused kernel carrying the
-    many forward evaluations."""
-    _guard_exact_forward(pallas_kw)
+                                             remat_chunk: int = 0):
+    """Differentiable HETEROGENEOUS mesh farm: the general engine vmapped
+    over a batched SimState.  ``inv_mass`` may be a per-body ``(B, n)``
+    leaf, so gradients flow to every batched leaf INCLUDING the per-body
+    masses — the system-identification workload (fit per-instance
+    masses/pins against observations)."""
     _check_chunk(n_substeps, remat_chunk)
-    from ..solvers import general
-    from . import mesh_pallas
-
-    pal = mesh_pallas.make_mesh_substep_runner(
-        topo, cfg, dt_sub, n_substeps, n_bodies=n_bodies, batched=True,
-        per_body_mass=True, **pallas_kw)
-
-    def one(state: SimState) -> SimState:
-        roll = _substep_rollout(
-            lambda c: general._substep(c, topo, cfg, dt_sub,
-                                       apply_ext=False),
-            n_substeps, remat_chunk)
-        return roll(state)
+    one = _mesh_substeps(topo, cfg, dt_sub, n_substeps, remat_chunk)
 
     @jax.jit
-    def ref(state: SimState) -> SimState:
+    def run(state: SimState) -> SimState:
         return _vmap_batched(one, state)
 
-    return pair_with_vjp(pal, ref)
+    return run

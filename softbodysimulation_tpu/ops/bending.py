@@ -53,7 +53,7 @@ def bending_delta_lambda_rel(e0, e1, e2, wa, wb, wc, wd, rest_angle,
                              compliance, lam, dt, cfg: SolverConfig):
     """Same math in hinge-relative coordinates: e0 = pB-pA, e1 = pC-pA,
     e2 = pD-pA (the constraint is translation-invariant, so the windowed
-    MXU backend gathers these differences directly via signed one-hots)."""
+    windowed backend gathers these differences directly via signed one-hots)."""
     n1 = jnp.cross(e0, e1)
     n2 = jnp.cross(e2, e0)
     l1sq = jnp.sum(n1 * n1, axis=-1)

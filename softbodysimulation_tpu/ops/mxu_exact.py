@@ -1,28 +1,26 @@
-"""Exact f32 MXU contractions against one-hot matrices via 3-term
-bfloat16 splitting.
+"""Exact f32 contractions against one-hot matrices via 3-term bfloat16
+splitting.
 
-The TPU MXU is a bfloat16 multiplier with float32 accumulation.  Measured
-on hardware (scripts/probe_mxu_precision.py): a DEFAULT-precision f32xf32
-``dot_general`` and the mixed bf16 x f32 product BOTH truncate the f32
-operand to bf16 before multiplying — max error ~7e-3 on O(1) data,
-exactly the bf16-truncation of the f32 side.  ``precision=HIGHEST``
-(6-pass bf16x6) is near-exact in plain XLA but unusable in Pallas: Mosaic
-rejects a bf16 operand under an f32 precision contract ("Bad rhs type").
+A DEFAULT-precision f32 ``dot_general`` may multiply at reduced
+precision on an accelerator (TF32 on NVIDIA tensor cores, bf16 passes on
+other matrix units), which would turn an exact one-hot gather or scatter
+into a rounded one (~1e-3 relative error on O(1) data).  The portable
+exact spelling splits the f32 data operand into three terms of at most 8
+significant bits each (top/middle/bottom mantissa slices; each residual
+is exact in f32) and accumulates three products:
 
-The portable exact spelling — identical in XLA and Mosaic — splits the
-f32 data operand into three bf16 terms (top/middle/bottom 8-bit mantissa
-slices; each residual is exactly representable in f32, Dekker-style) and
-accumulates three native MXU passes:
+    x = hi + mid + lo  (exactly),  x @ G = hi@G + mid@G + lo@G.
 
-    x = hi + mid + lo  (to ~1 ulp of f32),  x @ G = hi@G + mid@G + lo@G.
+Each term is exact in bf16, TF32 and f32, and {0, +-1} one-hots are exact
+in all three, so every product is exact and the result is exact to f32
+rounding of the accumulation.  The slices are cut with bit masks, not by
+a round trip through bf16: XLA's GPU compiler may drop an f32 -> bf16 ->
+f32 round trip as excess precision, which folds the split back into the
+plain f32 dot (measured on an H100: windowed vs gather drifted 4.7e-2
+after 60 bunny frames).  Cost: three products per contraction (or one,
+with ``stack_axis``).
 
-Against {0, +-1} one-hot matrices (exact in bf16) the result is exact to
-f32 rounding of the accumulation (measured max err 2.4e-7 vs 7e-3
-single-pass at window 256).  Cost: 3x the MXU passes of the single dot —
-the price of gather/scatter exactness on the windowed/mesh paths.
-
-Used by ``solvers/general`` (windowed XLA backends, always exact) and
-``kernels/mesh_pallas`` (exact unless ``approx_math``).
+Used by ``solvers/general``'s windowed backends.
 """
 
 from __future__ import annotations
@@ -31,45 +29,45 @@ import jax.numpy as jnp
 from jax import lax
 
 
+def _top8(x):
+    """``x`` cut to its 8 leading significant bits (sign and exponent
+    kept): an f32 value that bf16 and TF32 both hold exactly."""
+    bits = lax.bitcast_convert_type(x, jnp.uint32)
+    return lax.bitcast_convert_type(bits & jnp.uint32(0xFFFF0000),
+                                    jnp.float32)
+
+
 def split3(x):
-    """Split f32 ``x`` into three bf16 terms whose (f32) sum reconstructs
-    ``x`` to ~1 ulp.  Each subtraction is exact in f32 (the residual after
-    removing the top bf16 slice fits f32's mantissa)."""
-    hi = x.astype(jnp.bfloat16)
-    r1 = x - hi.astype(jnp.float32)
-    mid = r1.astype(jnp.bfloat16)
-    lo = (r1 - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, mid, lo
+    """Split f32 ``x`` into three bf16 terms whose (f32) sum is ``x``.
+    Each subtraction is exact in f32: 24 significant bits = 8 + 8 + 8."""
+    hi = _top8(x)
+    r1 = x - hi
+    mid = _top8(r1)
+    lo = r1 - mid
+    return (hi.astype(jnp.bfloat16), mid.astype(jnp.bfloat16),
+            lo.astype(jnp.bfloat16))
 
 
-def dot_oh(lhs, rhs, dimension_numbers, *, split="lhs", exact=True,
-           parts=None, stack_axis=None):
-    """``lax.dot_general`` of f32 data against a one-hot matrix, exact on
-    the TPU MXU.
+def dot_oh(lhs, rhs, dimension_numbers, *, split="lhs", parts=None,
+           stack_axis=None):
+    """``lax.dot_general`` of f32 data against a one-hot matrix, exact at
+    any matmul precision.
 
     ``split`` names the f32 DATA operand ("lhs"/"rhs"); the other operand
-    is the one-hot (bf16 or f32 {0, +-1} — exact either way, the MXU's
-    truncation of a {0, +-1} f32 one-hot is lossless).  ``exact=False``
-    emits the plain single-pass dot (bf16-truncated data on hardware —
-    the ``approx_math`` regime).  ``parts`` optionally supplies a
+    is the one-hot (bf16 or f32 {0, +-1} — exact either way, a reduced-
+    precision multiply of a {0, +-1} one-hot is lossless).  ``parts``
+    optionally supplies a
     precomputed split of the data operand so one ``split3`` can be shared
     across several dots (the 4-endpoint bending gathers): either the
     3-tuple, or — with ``stack_axis`` — the already-concatenated array.
 
     ``stack_axis`` names a FREE (non-contracted, non-batch) axis of the
     data operand along which the three bf16 parts are concatenated so the
-    whole compensation rides ONE MXU dot; the matching output axis is
-    slice-summed afterwards.  When that axis has slack in its register
-    tile (the (3, ...) coordinate axis of the kernel operands pads to a
-    full 16-sublane bf16 tile anyway, and 3->9 lanes stays inside one
-    128-lane tile), the exact dot costs the SAME MXU passes as the
-    truncated one — the split becomes a handful of VPU ops.  Without
-    ``stack_axis`` the fallback is three accumulated dots (3x passes).
+    whole compensation rides ONE dot; the matching output axis is
+    slice-summed afterwards.  Without ``stack_axis`` the fallback is
+    three accumulated dots.
     Both spellings sum hi+mid+lo in the same order — bitwise identical
     results."""
-    if not exact:
-        return lax.dot_general(lhs, rhs, dimension_numbers,
-                               preferred_element_type=jnp.float32)
     data = lhs if split == "lhs" else rhs
     if stack_axis is not None:
         if parts is None:

@@ -91,10 +91,10 @@ def self_collision_project(pred, inv_mass, cfg: SolverConfig):
 
 # ---------------------------------------------------------------- dense path
 def self_collision_project_dense(pred, inv_mass, cfg: SolverConfig):
-    """One EXACT Jacobi separation pass computed as MXU matmuls.
+    """One EXACT Jacobi separation pass computed as matrix products.
 
     All-pairs contact with zero gathers and zero capacity caveats — the
-    TPU-first formulation of the problem the reference's unused
+    dense formulation of the problem the reference's unused
     ``SphereCollision`` helper gestured at (``XPBDSimulatorCS.compute:213``):
 
       dist^2_ij = |x_i|^2 + |x_j|^2 - 2 x_i.x_j        (one (B,3)x(3,N) matmul)
@@ -104,8 +104,8 @@ def self_collision_project_dense(pred, inv_mass, cfg: SolverConfig):
     identical to the hash path's per-pair ``(w_i/wsum)*overlap*ndir`` sum.
     Rows are processed in ``cfg.dense_row_block``-sized blocks under
     ``lax.scan`` so peak memory is (B, N) rather than (N, N).  O(N^2) work,
-    but dense f32 on the MXU: exact and faster than the gather-bound hash
-    path up to ~16k particles.  Positions are centered first to keep the
+    but dense f32 matrix products (HIGHEST precision: true f32 on every
+    backend): exact, with no candidate capacity to overflow.  Positions are centered first to keep the
     |x|^2 cancellation benign at contact scale.
 
     Boundary-classification caveat: the Gram identity loses ~1e-7 absolute
@@ -259,7 +259,7 @@ def self_collision_blocked_dropped_pairs(pred, inv_mass, order,
 
 def self_collision_project_blocked(pred, inv_mass, order,
                                    cfg: SolverConfig):
-    """One EXACT-at-scale Jacobi separation pass: dense MXU contact math
+    """One EXACT-at-scale Jacobi separation pass: dense contact math
     restricted to AABB-proximate Morton blocks.
 
     Pipeline: Morton-sort (``order``, computed once per substep) ->
@@ -459,12 +459,6 @@ def project_self_collision(pred, inv_mass, order, cfg: SolverConfig):
         return self_collision_project_sorted(pred, inv_mass, order, cfg)
     if cfg.self_collision_backend == "blocked":
         return self_collision_project_blocked(pred, inv_mass, order, cfg)
-    if cfg.self_collision_backend == "blocked_pallas":
-        from ..kernels.contact_pallas import (
-            self_collision_project_blocked_pallas)
-
-        return self_collision_project_blocked_pallas(
-            pred, inv_mass, order, cfg)
     if cfg.self_collision_backend == "dense":
         return self_collision_project_dense(pred, inv_mass, cfg)
     return self_collision_project(pred, inv_mass, cfg)
@@ -472,4 +466,4 @@ def project_self_collision(pred, inv_mass, order, cfg: SolverConfig):
 
 def needs_morton_order(cfg: SolverConfig) -> bool:
     return cfg.enable_self_collision and cfg.self_collision_backend in (
-        "sorted", "blocked", "blocked_pallas")
+        "sorted", "blocked")

@@ -29,14 +29,23 @@ one-hot gathers (grad_root = -(sum of tip grads), same as the hinge root).
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 from ..core.config import SolverConfig
 
 
+def _dot3(a, b):
+    """Row-wise dot of (..., 3) vectors at HIGHEST precision: on a GPU a
+    DEFAULT-precision f32 dot may multiply in TF32 (about three decimal
+    digits); HIGHEST keeps it f32 and leaves the CPU's arithmetic as it
+    was."""
+    return jnp.einsum("...i,...i->...", a, b,
+                      precision=lax.Precision.HIGHEST)
+
+
 def tet_volume6(p0, p1, p2, p3):
     """6x the signed tet volume: dot(p1-p0, cross(p2-p0, p3-p0))."""
-    return jnp.einsum("...i,...i->...",
-                      p1 - p0, jnp.cross(p2 - p0, p3 - p0))
+    return _dot3(p1 - p0, jnp.cross(p2 - p0, p3 - p0))
 
 
 def tet_volumes6(positions, tets):
@@ -57,14 +66,11 @@ def tet_delta_lambda_rel(e1, e2, e3, w0, w1, w2, w3, rest_vol6,
     g2 = jnp.cross(e3, e1)
     g3 = jnp.cross(e1, e2)
     g0 = -(g1 + g2 + g3)
-    vol6 = jnp.einsum("...i,...i->...", e1, g1)
+    vol6 = _dot3(e1, g1)
     c = vol6 - cfg.tet_pressure * rest_vol6
     alpha = compliance / (dt * dt)
-    denom = (w0 * jnp.einsum("...i,...i->...", g0, g0)
-             + w1 * jnp.einsum("...i,...i->...", g1, g1)
-             + w2 * jnp.einsum("...i,...i->...", g2, g2)
-             + w3 * jnp.einsum("...i,...i->...", g3, g3)
-             + alpha)
+    denom = (w0 * _dot3(g0, g0) + w1 * _dot3(g1, g1)
+             + w2 * _dot3(g2, g2) + w3 * _dot3(g3, g3) + alpha)
     # degenerate tet (all gradients ~0, e.g. fully collapsed) or all-pinned:
     # skip, mirroring the distance solver's denominator guard.  Safe-where
     # divisor keeps the division VJP finite on skipped/padded lanes

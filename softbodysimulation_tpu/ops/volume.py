@@ -5,13 +5,14 @@ BASELINE config 3 capability.  The reference carried the seed of this —
 commented-out ``AddVolumeConstraints`` (``SoftBodySimulator.cs:187-212``) —
 but never wired it.  Here: a single XPBD constraint C = V - pressure * V0
 over the closed surface, with analytic gradient per vertex accumulated by
-segment-sum (the TPU-native scatter).
+segment-sum.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from ..core.config import SolverConfig
 
@@ -20,7 +21,9 @@ def enclosed_volume(positions, triangles):
     p1 = positions[triangles[:, 0]]
     p2 = positions[triangles[:, 1]]
     p3 = positions[triangles[:, 2]]
-    return jnp.sum(jnp.einsum("ij,ij->i", p1, jnp.cross(p2, p3))) / 6.0
+    # HIGHEST: a DEFAULT-precision f32 dot may run in TF32 on a GPU
+    return jnp.sum(jnp.einsum("ij,ij->i", p1, jnp.cross(p2, p3),
+                              precision=lax.Precision.HIGHEST)) / 6.0
 
 
 def volume_gradients(positions, triangles):

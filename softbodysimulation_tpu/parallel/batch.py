@@ -5,8 +5,8 @@ the capability it lacks entirely (SURVEY §2.4 'Batch over bodies: absent').
 Here an ensemble is just a vmapped ``SimState`` whose leaves carry a leading
 body axis, and multi-chip scaling is a ``shard_map`` over a 1-D device mesh:
 each chip owns a contiguous slab of bodies, the physics needs NO cross-chip
-traffic (bodies are independent), and only ensemble diagnostics reduce over
-ICI with ``psum``/``pmax``.
+traffic (bodies are independent), and only ensemble diagnostics reduce
+across devices with ``psum``/``pmax``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from typing import Callable, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.config import SolverConfig
@@ -27,24 +28,6 @@ from ..solvers import lattice as _lattice
 def stack_states(states) -> SimState:
     """Stack per-body SimStates into one batched SimState (B on axis 0)."""
     return jax.tree.map(lambda *xs: jnp.stack(xs), *states)
-
-
-_BODY_LEAVES = ("positions", "velocities", "inv_mass", "ext_force",
-                "lambda_dist", "lambda_bend", "lambda_volume", "lambda_tet")
-
-
-def _drop_body_axis(st: SimState) -> SimState:
-    """(1, ...) batched slab -> single-body SimState (colliders untouched:
-    a shared rigid world is unbatched by contract)."""
-    return st.replace(**{
-        k: getattr(st, k)[0] for k in _BODY_LEAVES
-        if getattr(st, k) is not None and getattr(st, k).ndim > 0})
-
-
-def _add_body_axis(st: SimState) -> SimState:
-    return st.replace(**{
-        k: getattr(st, k)[None] for k in _BODY_LEAVES
-        if getattr(st, k) is not None})
 
 
 def replicate_state(state: SimState, n_bodies: int) -> SimState:
@@ -106,15 +89,13 @@ def make_sharded_lattice_step(spec, cfg: SolverConfig, dt: float, mesh: Mesh,
     — ONE shared ``ColliderSet`` whose traced poses are replicated to every
     chip and act on every body (a rigid paddle sweeping through the whole
     farm animates with zero recompiles)."""
-    from jax.experimental.shard_map import shard_map
-
     spec_b = jax.tree.map(lambda _: P(axis), _state_structure(spec))
 
     if not kin_colliders:
         vstep = jax.vmap(
             lambda s: _lattice.multi_step_fn(s, spec, cfg, dt, n_steps))
         fn = shard_map(vstep, mesh=mesh, in_specs=(spec_b,),
-                       out_specs=spec_b, check_rep=False)
+                       out_specs=spec_b, check_vma=False)
         return jax.jit(fn)
 
     def local(st, cset):
@@ -123,7 +104,7 @@ def make_sharded_lattice_step(spec, cfg: SolverConfig, dt: float, mesh: Mesh,
         ).replace(colliders=None))(st)
 
     fn = shard_map(local, mesh=mesh, in_specs=(spec_b, P()),
-                   out_specs=spec_b, check_rep=False)
+                   out_specs=spec_b, check_vma=False)
 
     @jax.jit
     def step(batched: SimState, colliders) -> SimState:
@@ -132,165 +113,45 @@ def make_sharded_lattice_step(spec, cfg: SolverConfig, dt: float, mesh: Mesh,
     return step
 
 
-def pick_lattice_ensemble_backend(spec) -> str:
-    """Measured winner for a lattice ensemble's per-shard engine
-    (BENCH_SUITE_r04 ``ensemble64p`` pair): tiny bodies that lane-fold
-    multiple-per-128-lane-tile (res^2 < 128, e.g. the 1024 x res-4 farm)
-    run FASTER under the plain vmapped XLA stencil engine at long calls
-    (1.246e9 vs 9.55e8 ps/s same-run); bodies that fill the lane tiles
-    keep the fused ensemble kernel (the regime where the mesh farm twin
-    measures 9x vmap)."""
-    return "xla" if spec.res * spec.res < 128 else "pallas"
+def make_sharded_lattice_rollout(spec, cfg: SolverConfig, dt_sub: float,
+                                 n_substeps: int, mesh: Mesh, n_bodies: int,
+                                 axis: str = "dp", kin_colliders=None):
+    """DP over chips x a vmapped raw-substep rollout per shard.
 
-
-def make_sharded_pallas_rollout(spec, cfg: SolverConfig, dt_sub: float,
-                                n_substeps: int, mesh: Mesh, n_bodies: int,
-                                axis: str = "dp", backend: str = "auto",
-                                kin_colliders=None,
-                                **kernel_kw):
-    """DP over chips x a fused per-shard ensemble rollout.
-
-    ``backend="auto"`` (default) picks each geometry's MEASURED winner
-    (``pick_lattice_ensemble_backend``): the fused ensemble Pallas kernel
-    (``kernels.lattice_pallas.make_pallas_substep_runner_streamed(...,
-    n_bodies=B_local)``) for lane-filling bodies, the vmapped XLA stencil
-    substep runner for tiny lane-folded bodies.  Either way each chip
-    advances its contiguous slab of bodies in one compiled program with
-    zero hot-loop collectives.  Raw substep semantics (no external
-    forces), matching the single-chip runner; use the XLA
-    ``make_sharded_lattice_step`` when the per-step force lifecycle is
-    needed.  ``n_bodies`` is the GLOBAL body count and must divide by the
-    mesh size.
+    Each chip advances its contiguous slab of bodies through the stencil
+    engine's ``make_substep_runner`` in one compiled program with zero
+    hot-loop collectives.  Raw substep semantics (no external forces),
+    matching the single-chip runner; use ``make_sharded_lattice_step``
+    when the per-step force lifecycle is needed.  ``n_bodies`` is the
+    GLOBAL body count and must divide by the mesh size.
 
     ``kin_colliders=(S, B)``: the returned stepper takes ``(batched,
     colliders)`` — ONE shared ``ColliderSet``, replicated to every chip
     and acting on every body in the farm (traced poses; animation never
-    recompiles), on both the kernel and XLA routes."""
-    from jax.experimental.shard_map import shard_map
-
+    recompiles)."""
     n_shards = mesh.devices.size
     if n_bodies % n_shards:
         raise ValueError(f"n_bodies={n_bodies} must divide the "
                          f"{n_shards}-device mesh")
-    if backend == "auto":
-        backend = pick_lattice_ensemble_backend(spec)
-    kin = kin_colliders is not None
-    if backend == "xla":
-        runner = _lattice.make_substep_runner(spec, cfg, dt_sub, n_substeps)
-        if kin:
-            def local(st, cset):
-                return jax.vmap(lambda s: runner(
-                    s.replace(colliders=cset)
-                ).replace(colliders=None))(st)
-        else:
-            local = jax.vmap(runner)
-    elif backend == "pallas":
-        from ..kernels import lattice_pallas as _pallas
-
-        b_local = n_bodies // n_shards
-        runner = _pallas.make_pallas_substep_runner_streamed(
-            spec, cfg, dt_sub, n_substeps, n_bodies=b_local,
-            kin_colliders=kin_colliders, **kernel_kw)
-        if b_local == 1:
-            # one body per chip: the n_bodies=1 kernel speaks the
-            # single-body contract — bridge the slab's body axis
-            inner1 = runner
-
-            def runner(st):
-                return _add_body_axis(inner1(_drop_body_axis(st)))
-        if kin:
-            # the lane-folded ensemble kernel takes ONE shared collider
-            # block; install the replicated set on the local slab's state
-            def local(st, cset):
-                return runner(
-                    st.replace(colliders=cset)).replace(colliders=None)
-        else:
-            local = runner
-    else:
-        raise ValueError(f"backend={backend!r} (auto|pallas|xla)")
+    runner = _lattice.make_substep_runner(spec, cfg, dt_sub, n_substeps)
     spec_b = jax.tree.map(lambda _: P(axis), _state_structure(spec))
+    if kin_colliders is None:
+        return jax.jit(shard_map(jax.vmap(runner), mesh=mesh,
+                                 in_specs=(spec_b,), out_specs=spec_b,
+                                 check_vma=False))
 
-    if kin:
-        fn = shard_map(local, mesh=mesh, in_specs=(spec_b, P()),
-                       out_specs=spec_b, check_rep=False)
+    def local(st, cset):
+        return jax.vmap(lambda s: runner(
+            s.replace(colliders=cset)).replace(colliders=None))(st)
 
-        @jax.jit
-        def stepper(batched: SimState, colliders) -> SimState:
-            return fn(batched, colliders)
-    else:
-        fn = shard_map(local, mesh=mesh, in_specs=(spec_b,),
-                       out_specs=spec_b, check_rep=False)
-        stepper = jax.jit(fn)
-    stepper.ensemble_backend = backend   # introspectable routing decision
-    return stepper
-
-
-def make_sharded_mesh_pallas_rollout(topo, cfg: SolverConfig, dt_sub: float,
-                                     n_substeps: int, mesh: Mesh,
-                                     n_bodies: int, axis: str = "dp",
-                                     per_body_mass: bool = False,
-                                     **kernel_kw):
-    """DP over chips x the fused ENSEMBLE mesh kernel per shard (the mesh
-    twin of ``make_sharded_pallas_rollout``).
-
-    Each chip runs ``kernels.mesh_pallas.make_mesh_substep_runner(...,
-    n_bodies=B_local)`` on its contiguous slab of bodies — the whole
-    multi-chip bunny/cloth farm advances in ONE fused kernel per chip with
-    zero hot-loop collectives.  The batched state's body leaves split on
-    the mesh; ``inv_mass`` is the shared (n,) leaf by default (replicated
-    input), or — with ``per_body_mass=True`` — a per-body (B, n) leaf
-    that shards with the bodies (heterogeneous farms: per-body masses and
-    pins).  ``n_bodies`` is the GLOBAL body count and must divide by the
-    mesh size; note the kernel pads each shard's local batch to the 8-row
-    sublane tile, so B_local >= 8 per chip wastes nothing."""
-    from jax.experimental.shard_map import shard_map
-
-    from ..kernels import mesh_pallas as _mp
-
-    n_shards = mesh.devices.size
-    if n_bodies % n_shards:
-        raise ValueError(f"n_bodies={n_bodies} must divide the "
-                         f"{n_shards}-device mesh")
-    local = _mp.make_mesh_substep_runner(
-        topo, cfg, dt_sub, n_substeps, with_ext=True,
-        n_bodies=n_bodies // n_shards, batched=True,
-        per_body_mass=per_body_mass, **kernel_kw)
-    has_tets = cfg.enable_tet_volume and topo.n_tets > 0
-
-    def local_arrays(pos, vel, ext, lam, lamb, w, *rest):
-        st = SimState(positions=pos, velocities=vel, inv_mass=w,
-                      ext_force=ext, lambda_dist=lam, lambda_bend=lamb,
-                      lambda_volume=jnp.zeros((), jnp.float32),
-                      lambda_tet=rest[0] if has_tets else None)
-        out = local(st)
-        return ((out.positions, out.velocities, out.ext_force,
-                 out.lambda_dist, out.lambda_bend)
-                + ((out.lambda_tet,) if has_tets else ()))
-
-    n_out = 6 if has_tets else 5
-    w_spec = P(axis) if per_body_mass else P()
-    fn = shard_map(local_arrays, mesh=mesh,
-                   in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis),
-                             w_spec) + ((P(axis),) if has_tets else ()),
-                   out_specs=(P(axis),) * n_out,
-                   check_rep=False)
+    fn = shard_map(local, mesh=mesh, in_specs=(spec_b, P()),
+                   out_specs=spec_b, check_vma=False)
 
     @jax.jit
-    def run(batched: SimState) -> SimState:
-        args = [batched.positions, batched.velocities, batched.ext_force,
-                batched.lambda_dist, batched.lambda_bend, batched.inv_mass]
-        if has_tets:
-            args.append(batched.lambda_tet)
-        res = fn(*args)
-        pos, vel, ext, lam, lamb = res[:5]
-        out = batched.replace(positions=pos, velocities=vel,
-                              ext_force=ext, lambda_dist=lam,
-                              lambda_bend=lamb)
-        if has_tets:
-            out = out.replace(lambda_tet=res[5])
-        return out
+    def stepper(batched: SimState, colliders) -> SimState:
+        return fn(batched, colliders)
 
-    return run
+    return stepper
 
 
 def make_differentiable_sharded_mesh_rollout(topo, cfg: SolverConfig,
@@ -298,28 +159,25 @@ def make_differentiable_sharded_mesh_rollout(topo, cfg: SolverConfig,
                                              mesh: Mesh, n_bodies: int,
                                              axis: str = "dp",
                                              per_body_mass: bool = False,
-                                             remat_chunk: int = 0,
-                                             **kernel_kw):
-    """DISTRIBUTED differentiable farm: ``make_sharded_mesh_pallas_rollout``
-    as the primal (one fused ensemble kernel per chip, zero hot-loop
-    collectives) custom-VJP-paired with the same sharding of the vmapped
-    XLA engine — ``jax.grad`` of a loss over the whole multi-chip farm
-    returns per-body gradients with the shard_map transpose inserting
-    exactly the collectives the sharding implies (a ``psum`` over chips
-    for the replicated ``inv_mass`` leaf, none for the split body leaves).
-    Semantics match the rollout's ``with_ext=True`` contract (ext consumed
-    on the first substep, zeroed after); ``remat_chunk`` chunks the
-    ext-free tail of the backward (see ``kernels.diff._substep_rollout``).
-    Training loops over body farms too big for one chip — no reference
-    counterpart at any distance."""
-    from jax.experimental.shard_map import shard_map
+                                             remat_chunk: int = 0):
+    """DISTRIBUTED differentiable farm: the vmapped general engine, one
+    contiguous slab of bodies per chip under ``shard_map`` with zero
+    hot-loop collectives.  ``jax.grad`` of a loss over the whole
+    multi-chip farm returns per-body gradients, the shard_map transpose
+    inserting exactly the collectives the sharding implies (a ``psum``
+    over chips for a replicated ``inv_mass`` leaf, none for the split
+    body leaves).  External forces are consumed on the first substep and
+    zeroed after; ``per_body_mass=True`` takes ``inv_mass`` as a (B, n)
+    leaf that splits with the bodies; ``remat_chunk`` chunks the ext-free
+    tail of the rollout (see ``kernels.diff._substep_rollout``).
+    ``n_bodies`` is the GLOBAL body count and must divide by the mesh
+    size."""
+    from ..kernels.diff import _check_chunk, _substep_rollout
 
-    from ..kernels.diff import _check_chunk, _substep_rollout, pair_with_vjp
-
+    if n_bodies % mesh.devices.size:
+        raise ValueError(f"n_bodies={n_bodies} must divide the "
+                         f"{mesh.devices.size}-device mesh")
     _check_chunk(max(n_substeps - 1, 1), remat_chunk)
-    pal = make_sharded_mesh_pallas_rollout(
-        topo, cfg, dt_sub, n_substeps, mesh, n_bodies, axis=axis,
-        per_body_mass=per_body_mass, **kernel_kw)
     has_tets = cfg.enable_tet_volume and topo.n_tets > 0
 
     def one(state: SimState) -> SimState:
@@ -356,10 +214,10 @@ def make_differentiable_sharded_mesh_rollout(topo, cfg: SolverConfig,
                    in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis),
                              w_spec) + ((P(axis),) if has_tets else ()),
                    out_specs=(P(axis),) * n_out,
-                   check_rep=False)
+                   check_vma=False)
 
     @jax.jit
-    def ref(batched: SimState) -> SimState:
+    def run(batched: SimState) -> SimState:
         args = [batched.positions, batched.velocities, batched.ext_force,
                 batched.lambda_dist, batched.lambda_bend, batched.inv_mass]
         if has_tets:
@@ -372,7 +230,7 @@ def make_differentiable_sharded_mesh_rollout(topo, cfg: SolverConfig,
             out = out.replace(lambda_tet=res[5])
         return out
 
-    return pair_with_vjp(pal, ref)
+    return run
 
 
 def make_sharded_general_step(topo, cfg: SolverConfig, dt: float, mesh: Mesh,
@@ -382,8 +240,6 @@ def make_sharded_general_step(topo, cfg: SolverConfig, dt: float, mesh: Mesh,
     the windowed one-hot matrices when present — is replicated per chip;
     the body axis splits.  Pure per-chip compute, zero hot-loop
     collectives; pair with ``make_sharded_ensemble_diagnostics``."""
-    from jax.experimental.shard_map import shard_map
-
     vstep = jax.vmap(
         lambda s: _general.multi_step_fn(s, topo, cfg, dt, n_steps))
     spec_b = SimState(
@@ -393,7 +249,7 @@ def make_sharded_general_step(topo, cfg: SolverConfig, dt: float, mesh: Mesh,
         lambda_tet=(P(axis) if topo.n_tets else None))
 
     fn = shard_map(vstep, mesh=mesh, in_specs=(spec_b,), out_specs=spec_b,
-                   check_rep=False)
+                   check_vma=False)
     return jax.jit(fn)
 
 
@@ -414,9 +270,7 @@ def make_sharded_ensemble_diagnostics(mesh: Mesh, ground_height: float = 0.0,
                                       axis: str = "dp"):
     """Cross-chip ensemble health reduction: one jitted call returning global
     max velocity / non-finite count / mean height over ALL bodies on ALL
-    chips — the psum/pmax collective path over ICI."""
-    from jax.experimental.shard_map import shard_map
-
+    chips — the psum/pmax collective path."""
     def local(positions, velocities):
         # positions/velocities: (B_local, N, 3)
         vmax = jnp.abs(velocities).max()
@@ -434,7 +288,7 @@ def make_sharded_ensemble_diagnostics(mesh: Mesh, ground_height: float = 0.0,
         local, mesh=mesh,
         in_specs=(P(axis), P(axis)),
         out_specs=(P(), P(), P(), P()),
-        check_rep=False)
+        check_vma=False)
 
     @jax.jit
     def run(batched: SimState):

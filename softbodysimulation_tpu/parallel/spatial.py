@@ -3,7 +3,7 @@
 The TP/ring analog from SURVEY §2.4/§5: when a single body exceeds one chip,
 partition the lattice along its x-axis over a 1-D device mesh.  Each chip
 owns a slab of ``res/D`` x-planes; the stencil families with an x-component
-need exactly one plane of halo, exchanged with ``lax.ppermute`` over ICI:
+need exactly one plane of halo, exchanged with ``lax.ppermute`` between neighbouring devices:
 
   * before a pass: each chip receives its right neighbor's FIRST x-plane of
     predicted positions (the gather halo);
@@ -13,9 +13,10 @@ need exactly one plane of halo, exchanged with ``lax.ppermute`` over ICI:
 
 All y/z-offset components stay chip-local (those axes are unsharded).  The
 parity-split Gauss-Seidel semantics are preserved exactly: masks are built
-on GLOBAL coordinates and sharded alongside the state, so the distributed
-step is arithmetically identical to the single-chip stencil engine — tested
-on the virtual CPU mesh.
+on GLOBAL coordinates and sharded alongside the state, and each pass
+spells the single-chip stencil engine's arithmetic in its order, so the
+two agree to the compiler's fusion choices (tets: to their deferred-halo
+sum order; see ``_sharded_tet_sweep``).
 """
 
 from __future__ import annotations
@@ -25,15 +26,14 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
-from jax.experimental.shard_map import shard_map
+from jax import lax, shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
 from ..core.state import SimState
 from ..ops import collision as _collision
 from ..ops import integrate as _integrate
-from ..solvers.lattice import _family_masks, n_lambda
+from ..solvers.lattice import _family_masks, _project_rigid, n_lambda
 from ..topology.lattice import LatticeSpec
 
 
@@ -45,6 +45,14 @@ def _right_perm(d: int):
 def _left_perm(d: int):
     """perm for: device i+1 receives from device i (push correction right)."""
     return [(i, i + 1) for i in range(d - 1)]
+
+
+def _length(d):
+    """Edge lengths of trailing-3 vectors, in the single-chip stencil
+    engine's operation order (so both round alike)."""
+    return jnp.sqrt(jnp.maximum(
+        d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2],
+        1e-24))
 
 
 def _sharded_family_pass(pred, w, w_halo, lam_f, family, mask, rest, comp,
@@ -68,8 +76,7 @@ def _sharded_family_pass(pred, w, w_halo, lam_f, family, mask, rest, comp,
     wb = jnp.roll(wb, yz_fwd, axis=(1, 2))
 
     d = pb - pred
-    length = jnp.sqrt(jnp.maximum(jnp.sum(d * d, axis=-1), 1e-24))
-    nrm = d / length[..., None]
+    length = _length(d)
     c = length - rest
     alpha = comp / (dt * dt)
     if cfg.min_alpha_tilde > 0:
@@ -93,7 +100,7 @@ def _sharded_family_pass(pred, w, w_halo, lam_f, family, mask, rest, comp,
     if cfg.lambda_clamp > 0:
         lam_f = jnp.clip(lam_f, -cfg.lambda_clamp, cfg.lambda_clamp)
 
-    dp = dl[..., None] * nrm
+    dp = d * (dl / length)[..., None]
     pred = pred - w[..., None] * dp
     corr = jnp.roll(wb[..., None] * dp, yz_bwd, axis=(1, 2))
     if dx:
@@ -126,10 +133,9 @@ def _apply_warm(pred, w, w_halo, lam_f, family, valid, axis, n_shards,
         lim = cfg.warm_start_clamp * rest / wmax
         lam_f = jnp.clip(lam_f, -lim, lim)
     d = pb - pred
-    length = jnp.sqrt(jnp.maximum(jnp.sum(d * d, axis=-1), 1e-24))
-    nrm = d / length[..., None]
+    length = _length(d)
     dl = jnp.where(valid, lam_f, 0.0)
-    dp = dl[..., None] * nrm
+    dp = d * (dl / length)[..., None]
     pred = pred - w[..., None] * dp
     corr = jnp.roll(wb[..., None] * dp, (dy, dz), axis=(1, 2))
     if dx:
@@ -225,43 +231,17 @@ def _sharded_tet_sweep(pred, w, lam_t, paths, valid, tdeg, rest6,
 
 def make_spatial_lattice_step(spec: LatticeSpec, cfg: SolverConfig,
                               dt: float, mesh: Mesh, n_steps: int = 1,
-                              axis: str = "x", backend: str = "xla",
-                              interpret: bool = True,
-                              kin_colliders=None):
+                              axis: str = "x", kin_colliders=None):
     """Compile a sharded ``SimState -> SimState`` step for one large lattice
-    split over ``mesh``'s devices along the lattice x-axis.
-
-    backend="xla" (default) — per-family XLA passes with ``lax.ppermute``
-    halo exchange.  backend="pallas" — the FUSED per-device kernel
-    (``kernels.spatial_pallas``): each device runs its whole slab substep
-    loop as one Mosaic program with in-kernel remote-DMA halo exchange
-    (arithmetic mirrored 1:1; equivalence in tests/test_spatial_pallas.py).
-    The pallas backend currently runs in INTERPRET mode (``interpret=``):
-    no multi-chip hardware exists in this environment to execute or
-    measure real ICI remote DMA, and the exchange still needs
-    flow-control credits before hardware deployment (module docstring of
-    ``kernels/spatial_pallas.py``) — the real-ICI measurement is
-    blocked-on-hardware, not on code.
+    split over ``mesh``'s devices along the lattice x-axis: per-family XLA
+    passes with ``lax.ppermute`` halo exchange.
 
     ``kin_colliders=(S, B)``: the state's ``ColliderSet`` poses enter the
     sharded program as small REPLICATED traced arrays (every chip sees the
     full rigid world; only the soft body is spatially sharded), replacing
     the config's rigid-world constants with the same formulas the
     single-chip engines use — a collider can sweep across the whole
-    device mesh without recompiles (xla backend only)."""
-    if kin_colliders is not None and backend != "xla":
-        raise NotImplementedError(
-            "kinematic colliders on the spatial PALLAS backend are not "
-            "fused yet — use backend='xla' (same sharding, traced poses)")
-    if backend == "pallas":
-        from ..kernels import spatial_pallas
-
-        return spatial_pallas.make_spatial_pallas_substep(
-            spec, cfg, dt, mesh, n_steps=n_steps, axis=axis,
-            interpret=interpret)
-    if backend != "xla":
-        raise ValueError(f"backend must be 'xla' or 'pallas', got "
-                         f"{backend!r}")
+    device mesh without recompiles."""
     kin = kin_colliders is not None
     kin_s, kin_b = (int(kin_colliders[0]), int(kin_colliders[1])) if kin \
         else (0, 0)
@@ -357,23 +337,11 @@ def make_spatial_lattice_step(spec: LatticeSpec, cfg: SolverConfig,
                 pred, lam_t = _sharded_tet_sweep(
                     pred, w, lam_t, tet_paths, tvalid, tdeg, tet_rest6,
                     cfg, dt_sub, axis, n_shards, tet_omega)
-            sph, boxr, gh_tr, sphv, boxv = (
-                kc if kc is not None else (None,) * 5)
-            if cfg.floor_mode == FloorMode.XPBD_INEQUALITY:
-                pf = _collision.floor_project_xpbd(
-                    pred.reshape(-1, 3), x.reshape(-1, 3), w.reshape(-1),
-                    dt_sub, cfg, ground_height=gh_tr)
-                pred = pf.reshape(p, res, res, 3)
-            if (kin and kin_s > 0) or (not kin and cfg.sphere_colliders):
-                pf = _collision.sphere_sdf_project(
-                    pred.reshape(-1, 3), x.reshape(-1, 3), w.reshape(-1),
-                    dt_sub, cfg, spheres=sph, sphere_velocities=sphv)
-                pred = pf.reshape(p, res, res, 3)
-            if (kin and kin_b > 0) or (not kin and cfg.box_colliders):
-                pf = _collision.box_sdf_project(
-                    pred.reshape(-1, 3), x.reshape(-1, 3), w.reshape(-1),
-                    dt_sub, cfg, boxes=boxr, box_velocities=boxv)
-                pred = pf.reshape(p, res, res, 3)
+            # the single-chip engine's own projection, on a component-
+            # first view of this slab (elementwise, so no halo)
+            pred = jnp.moveaxis(_project_rigid(
+                jnp.moveaxis(pred, -1, 0), jnp.moveaxis(x, -1, 0), w,
+                dt_sub, cfg, kc), 0, -1)
             return pred, lam, lam_t
 
         pred, lam, lam_t = lax.fori_loop(0, cfg.iterations, iteration,
@@ -441,7 +409,7 @@ def make_spatial_lattice_step(spec: LatticeSpec, cfg: SolverConfig,
         dispatch, mesh=mesh,
         in_specs=tuple(in_specs),
         out_specs=(sx, sx, P(None, axis)),
-        check_rep=False)
+        check_vma=False)
     jfn = jax.jit(fn)
 
     valid_dev = jnp.asarray(valid_np)

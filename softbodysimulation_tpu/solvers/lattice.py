@@ -1,4 +1,4 @@
-"""Stencil XPBD engine for res^3 lattices — the flagship TPU path.
+"""Stencil XPBD engine for res^3 lattices — the flagship path.
 
 The reference's flagship engine (``SoftBodySimulator`` + ``XPBDSoftBody``)
 spends its life marshalling an explicit constraint list through per-color GPU
@@ -14,16 +14,14 @@ shifted-array arithmetic —
     one parity class no two constraints share a particle, so families x 2
     parities of dense passes give EXACT Gauss-Seidel.
 
-No edge list, no indices, no segment-sum — pure VPU-shaped elementwise work.
+No edge list, no indices, no segment-sum — pure elementwise work.
 
-TPU layout: component-major ``(3, res, res*res)`` — sublane = x-plane,
-lane = y*res + z (a long, well-vectorized minor axis; the naive
-``(res,res,res,3)`` layout leaves a 3-wide minor dim and vectorizes
-terribly).  Offset shifts become rolls on the two minor axes:
-x-shift -> axis 1; y/z-shift -> axis 2 by dy*res+dz (wrap leakage across
-y-rows is exactly the out-of-bounds region the masks already kill).
-The fused Pallas kernel (``kernels/lattice_pallas.py``) uses the identical
-layout and semantics, keeping the two implementations interchangeable.
+Layout: component-major ``(3, res, res*res)`` — axis 1 = x-plane, axis 2 =
+y*res + z (a long, contiguous minor axis; the naive ``(res,res,res,3)``
+layout leaves a 3-wide minor dim and vectorizes terribly).  Offset shifts
+become rolls on the two minor axes: x-shift -> axis 1; y/z-shift -> axis 2
+by dy*res+dz (wrap leakage across y-rows is exactly the out-of-bounds
+region the masks already kill).
 
 State interop: standard ``SimState`` with x-major flattened positions
 (index = (x*res + y)*res + z, matching ``SoftBodySimulator.cs:121-144``);
@@ -290,6 +288,59 @@ def _floor_xpbd(pred, x, w, dt, cfg: SolverConfig, ground_height=None):
     return jnp.stack([p0, p1, p2])
 
 
+def _project_rigid(pred, x, w, dt, cfg: SolverConfig, kc=None):
+    """The rigid world's projections, componentwise on (3, ...) with ``w``
+    shaped like ``pred[0]``: XPBD floor, then boxes, then spheres.  ``kc``
+    — optional traced ``(spheres, boxes, ground_height, sphere_velocities,
+    box_velocities)`` replacing the config's rigid world (kinematic
+    colliders).  The spatially sharded engine calls this too, so a contact
+    decision never differs between the two by rounding."""
+    if kc is None:
+        sph = boxes = gh = sphv = boxv = None
+        has_spheres = bool(cfg.sphere_colliders)
+        has_boxes = bool(cfg.box_colliders)
+    else:
+        sph, boxes, gh, sphv, boxv = kc
+        has_spheres, has_boxes = sph.shape[0] > 0, boxes.shape[0] > 0
+    if cfg.floor_mode == FloorMode.XPBD_INEQUALITY:
+        pred = _floor_xpbd(pred, x, w, dt, cfg, ground_height=gh)
+    if has_boxes:
+        from ..ops import collision as _collision
+
+        flat = _collision.box_sdf_project(
+            pred.reshape(3, -1).T, x.reshape(3, -1).T, w.reshape(-1), dt,
+            cfg, boxes=boxes, box_velocities=boxv)
+        pred = flat.T.reshape(pred.shape)
+    if has_spheres:
+        bshape = (3,) + (1,) * (pred.ndim - 1)
+        if kc is None:
+            rows = [(jnp.asarray([cx, cy, cz], x.dtype).reshape(bshape),
+                     radius, None)
+                    for cx, cy, cz, radius in cfg.sphere_colliders]
+        else:
+            rows = [(sph[i, :3].astype(x.dtype).reshape(bshape), sph[i, 3],
+                     sphv[i]) for i in range(sph.shape[0])]
+        for center, radius, svel in rows:
+            dvec = pred - center
+            dist = jnp.sqrt(jnp.maximum(
+                dvec[0] ** 2 + dvec[1] ** 2 + dvec[2] ** 2, 1e-24))
+            nrm = dvec / dist[None]
+            penet = radius - dist
+            act = (penet > 0) & (w >= cfg.static_inv_mass_eps)
+            pred = pred + jnp.where(act[None], nrm * penet[None], 0.0)
+            vel = (pred - x) / dt
+            if svel is not None:
+                # friction in the moving collider's frame: a sweeping
+                # sphere drags contacting particles along
+                vel = vel - svel.astype(x.dtype).reshape(bshape)
+            vn = (vel[0] * nrm[0] + vel[1] * nrm[1]
+                  + vel[2] * nrm[2])[None] * nrm
+            vt = vel - vn
+            fr = min(max(cfg.friction, 0.0), 1.0)
+            pred = pred - jnp.where(act[None], vt * (dt * fr), 0.0)
+    return pred
+
+
 def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
              apply_ext: bool, masks_dev, contact_on: bool = True,
              coll=None):
@@ -302,13 +353,11 @@ def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
     res = spec.res
 
     if coll is None:
-        gh_op = None
-        has_spheres = bool(cfg.sphere_colliders)
-        has_boxes = bool(cfg.box_colliders)
+        gh_op = kc = None
     else:
         gh_op = coll.ground_height
-        has_spheres = coll.n_spheres > 0
-        has_boxes = coll.n_boxes > 0
+        kc = (coll.spheres, coll.boxes, coll.ground_height,
+              coll.sphere_velocities, coll.box_velocities)
 
     lam_t = None
     if isinstance(lam, tuple):
@@ -423,49 +472,7 @@ def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
             flat = _spatial_hash.project_self_collision(
                 pred.reshape(3, -1).T, w.reshape(-1), sc_order, cfg)
             pred = flat.T.reshape(3, res, res * res)
-        if cfg.floor_mode == FloorMode.XPBD_INEQUALITY:
-            pred = _floor_xpbd(pred, x, w, dt, cfg, ground_height=gh_op)
-        if has_boxes:
-            from ..ops import collision as _collision
-
-            flat = pred.reshape(3, -1).T
-            prev = x.reshape(3, -1).T
-            flat = _collision.box_sdf_project(
-                flat, prev, w.reshape(-1), dt, cfg,
-                boxes=None if coll is None else coll.boxes,
-                box_velocities=None if coll is None
-                else coll.box_velocities)
-            pred = flat.T.reshape(3, res, res * res)
-        if has_spheres:
-            if coll is None:
-                rows = [(jnp.asarray([cx, cy, cz], x.dtype).reshape(3, 1, 1),
-                         radius, None)
-                        for cx, cy, cz, radius in cfg.sphere_colliders]
-            else:
-                rows = [(coll.spheres[i, :3].astype(x.dtype)
-                         .reshape(3, 1, 1),
-                         coll.spheres[i, 3],
-                         coll.sphere_velocities[i])
-                        for i in range(coll.n_spheres)]
-            for center, radius, svel in rows:
-                dvec = pred - center
-                dist = jnp.sqrt(jnp.maximum(
-                    dvec[0] ** 2 + dvec[1] ** 2 + dvec[2] ** 2, 1e-24))
-                nrm = dvec / dist[None]
-                penet = radius - dist
-                act = (penet > 0) & (w >= cfg.static_inv_mass_eps)
-                pred = pred + jnp.where(act[None],
-                                        nrm * penet[None], 0.0)
-                vel = (pred - x) / dt
-                if svel is not None:
-                    # friction in the moving collider's frame: a sweeping
-                    # sphere drags contacting particles along
-                    vel = vel - svel.astype(x.dtype).reshape(3, 1, 1)
-                vn = (vel[0] * nrm[0] + vel[1] * nrm[1]
-                      + vel[2] * nrm[2])[None] * nrm
-                vt = vel - vn
-                fr = min(max(cfg.friction, 0.0), 1.0)
-                pred = pred - jnp.where(act[None], vt * (dt * fr), 0.0)
+        pred = _project_rigid(pred, x, w, dt, cfg, kc)
         return pred, lam, lam_t
 
     pred, lam, lam_t = lax.fori_loop(0, cfg.iterations, iteration,
@@ -635,7 +642,7 @@ def make_batched_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
             raise NotImplementedError(
                 "lane-folded ensemble stepping does not take per-body "
                 "ColliderSets; animate colliders on the general engine "
-                "(vmap make_step) or the fused mesh-ensemble runners")
+                "(vmap make_step)")
         b = batched.positions.shape[0]
         x = to_wide(batched.positions)
         v = to_wide(batched.velocities)
@@ -681,7 +688,7 @@ def make_batched_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
 def make_substep_runner(spec: LatticeSpec, cfg: SolverConfig, dt_sub: float,
                         n_substeps: int):
     """Flat scan over raw substeps (no per-step structure, no ext forces):
-    one scan level keeps (remote) compile time flat — used by benchmarks."""
+    one scan level keeps compile time flat — used by benchmarks."""
     masks = _masks_dev(spec)
 
     every = cfg.self_collision_every if cfg.enable_self_collision else 1

@@ -137,8 +137,8 @@ def build_topology(
 
     # Incidence lists: for each particle, the indices of its contributions
     # in the stacked per-constraint correction arrays.  Turns the Jacobi
-    # accumulation from a scatter (near-serial on TPU) into a padded gather
-    # + row-sum (fully vectorized).  Pad entry = one-past-the-end, pointing
+    # accumulation from a scatter-add into a padded gather + row-sum (fully
+    # vectorized, no atomics).  Pad entry = one-past-the-end, pointing
     # at an appended zero row.
     incid = _build_incidence(edges, n)
     bincid = _build_incidence(hinges, n)
@@ -209,7 +209,7 @@ def build_windowed_topology(
     order: Optional[np.ndarray] = None,
     **kw,
 ):
-    """Build a Topology carrying the MXU one-hot window structure
+    """Build a Topology carrying the one-hot window structure
     (``topology/windows.py``) for the general engine's matmul distance
     backend.
 
@@ -292,8 +292,8 @@ def build_windowed_topology(
     except ValueError:
         if not colored:
             raise
-        win = None   # color-scattered order blew the XLA window bound;
-        #              the mesh kernel packs its own span-bounded blocks
+        win = None   # color-scattered order blew the window bound; the
+        #              COLORED sweep does not use the windows
     bwin = None
     if hinges is not None and len(hinges):
         try:
@@ -388,11 +388,11 @@ def topology_from_mesh(
     """Mesh -> particles + edge/hinge constraints, the
     ``InitializeSoftBodyFromMesh`` path (``SoftBodyCPU.cs:121-157``).
     Returns (positions, Topology).  ``weld_eps > 0`` welds first
-    (``SoftBodyGPU.cs:121``).  ``windowed=True`` builds the MXU one-hot
+    (``SoftBodyGPU.cs:121``).  ``windowed=True`` builds the one-hot
     window structure (RCM-renumbers the vertices — the returned positions
     and the topology's triangles are in the permuted space);
-    ``windowed="colored"`` additionally orders edges color-major for the
-    fused mesh kernel's COLORED (exact parallel-GS) mode."""
+    ``windowed="colored"`` additionally orders edges color-major (the
+    COLORED exact parallel-GS sweep's order)."""
     verts, tris = mesh.vertices, mesh.triangles
     if weld_eps > 0:
         verts, tris, _ = _edges.weld(verts, tris, weld_eps)
@@ -490,7 +490,7 @@ def merge_topologies(bodies, windowed=False, **build_kwargs):
     but merged coloring may use fewer colors).
     windowed — route the merged arrays through ``build_windowed_topology``
     with the IDENTITY particle order, so the merged topology carries the
-    MXU window structure (fused mesh kernel / windowed engine backend)
+    one-hot window structure (the windowed engine backend)
     while every body keeps its particle index range.  Bodies are already
     index-contiguous, so windows stay body-local without an RCM pass, and
     the stable min-endpoint constraint sorts keep every ``BodySlices``

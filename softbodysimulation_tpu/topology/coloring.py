@@ -67,7 +67,7 @@ def color_buckets(
     """Pack constraint indices into padded per-color buckets.
 
     Returns (ids (C, M) int32, valid (C, M) float32, num_colors).  M is the
-    max bucket size rounded up to ``pad_multiple`` (for TPU-friendly shapes).
+    max bucket size rounded up to ``pad_multiple`` (for aligned shapes).
     Padding entries carry id 0 and valid 0.0, so downstream scatters are
     no-ops for them.
     """

@@ -6,7 +6,7 @@ particle grid (``SoftBodySimulator.cs:107-144``), structural edges
 (``:270-290``) and the surface-quad render topology (``:391-444``) — as
 vectorized NumPy.
 
-Crucially for TPU, a lattice's constraint graph is exactly SEVEN fixed offset
+Crucially for an accelerator, a lattice's constraint graph is exactly SEVEN fixed offset
 families (3 structural axes + 3 shear diagonals + 1 bend diagonal).  The
 stencil solver (``solvers/lattice.py``) exploits this: constraint projection
 becomes shifted-array arithmetic with boundary masks — no edge list, no

@@ -1,6 +1,6 @@
 """Host-side triangle-mesh container and procedural primitives.
 
-TPU-native replacement for Unity ``Mesh`` + ``MeshFactory``
+Replacement for Unity ``Mesh`` + ``MeshFactory``
 (``MeshFactory.cs:6-110``) and the procedural generators embedded in the
 simulators.  Everything here is NumPy and runs once at scene-build time.
 """

@@ -1,10 +1,10 @@
 """Windowed one-hot incidence structure for the general (mesh) engine.
 
-The TPU answer to the reference's per-constraint scatter loops
-(``SoftBodyCPU.cs:307-312``, ``XPBDSimulatorCS.compute:128-182``): XLA's
-irregular gathers are element-serial on TPU (~2 ns/element but ~14 us per
-(E,3) gather at bunny scale, measured), so the Jacobi sweep is reformulated
-as dense block matmuls that the MXU executes directly:
+A matrix-unit answer to the reference's per-constraint scatter loops
+(``SoftBodyCPU.cs:307-312``, ``XPBDSimulatorCS.compute:128-182``): the
+Jacobi sweep is reformulated as dense block matmuls, for devices whose
+irregular gathers are slow next to their matrix units (the ``gather``
+backend computes the same sweep with indexed gathers):
 
 1. particles are renumbered by reverse Cuthill-McKee so every edge connects
    nearby indices (bunny: bandwidth 2430 -> 135);
@@ -117,8 +117,8 @@ def build_windows(edges: np.ndarray, n_particles: int, degree: np.ndarray,
 
     # AB/C entries are {0, 1}: exact in bf16, halving the per-sweep HBM
     # traffic.  Accuracy does NOT ride on the one-hot dtype — the engine
-    # 3-term bf16-splits the f32 DATA operand of every one-hot dot
-    # (ops/mxu_exact.py; the MXU truncates f32 to bf16 either way)
+    # splits the f32 DATA operand of every one-hot dot into three 8-bit
+    # slices (ops/mxu_exact.py), exact at any matmul precision
     jdt = jnp.bfloat16 if str(dtype) in ("bf16", "bfloat16") else jnp.float32
     return Windows(
         AB=jnp.asarray(AB, jdt),

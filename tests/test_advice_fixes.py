@@ -1,4 +1,4 @@
-"""Regression tests for the round-1 advisor findings (ADVICE.md):
+"""Regression tests for the round-1 review findings:
 
 1. Chebyshev acceleration must not re-penetrate contacts it just resolved;
 2. omega has the SAME meaning in every engine (scale on the

@@ -1,13 +1,12 @@
-"""Regression tests for the round-2 advisor findings (ADVICE.md):
+"""Regression tests for the round-2 review findings:
 
 1. the blocked self-collision backend's exactness precondition is surfaced
    through a production diagnostics entry point (``diag.diagnostics
    .blocked_overflow``) instead of living only as an un-invoked op helper.
 
-(2: bench.py health gates are explicit raises — covered by inspection, the
-benchmark needs hardware; 3: CLI interpret-mode guard keys on the actual
-default backend — covered by test_scenes_cli's pallas-engine run on CPU;
-4: dense-backend boundary caveat is a docstring note.)
+(2: bench.py health gates are explicit raises — covered by
+tests/test_bench_contract.py; 3: dense-backend boundary caveat is a
+docstring note.)
 """
 
 import numpy as np

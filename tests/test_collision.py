@@ -128,7 +128,7 @@ def test_sorted_matches_hash_on_random_cloud():
 
 
 def test_dense_matches_hash_on_random_cloud():
-    """The two exact backends (27-cell hash gather vs all-pairs MXU matmul)
+    """The two exact backends (27-cell hash gather vs all-pairs matmul)
     must agree on a dense random cloud, including with pinned particles and
     a block size that forces row padding."""
     import jax.numpy as jnp
@@ -365,3 +365,35 @@ def test_blocked_dropped_pairs_pair_accurate_gate():
     out3 = np.asarray(spatial_hash.self_collision_project_blocked(
         p, w, order, cfg3))
     assert np.abs(out3 - dense).max() > 1e-3
+
+
+@pytest.mark.parametrize("pinned", [False, True], ids=["free", "pinned"])
+@pytest.mark.parametrize("seed", [21, 22, 23])
+def test_blocked_matches_dense_with_padding(seed, pinned):
+    """The all-pairs dense and the Morton-blocked backend with no dropped
+    pair give one projection on a cloud whose size pads both the dense row
+    blocks and the Morton blocks (hash vs dense:
+    test_dense_matches_hash_on_random_cloud)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    n = 777
+    pred = jnp.asarray(rng.uniform(0, 0.8, (n, 3)), jnp.float32)
+    w = np.ones(n, np.float32)
+    if pinned:
+        w[rng.uniform(size=n) < 0.15] = 0.0
+    w = jnp.asarray(w)
+    cfg = SolverConfig(particle_radius=0.04, self_collision_omega=1.0,
+                       dense_row_block=128,
+                       collision_block_size=64, block_neighbors=16)
+    order = spatial_hash.morton_order(pred, cfg)
+    assert int(spatial_hash.self_collision_blocked_dropped_pairs(
+        pred, w, order, cfg)) == 0
+    dense = _project("dense", pred, w, cfg)
+    assert np.abs(dense - np.asarray(pred)).max() > 1e-3   # real contact
+    # boundary noise only, as in test_blocked_dropped_pairs_pair_accurate_gate
+    np.testing.assert_allclose(_project("blocked", pred, w, cfg), dense,
+                               rtol=0, atol=5e-5)
+    if pinned:
+        fixed = np.asarray(w) == 0
+        np.testing.assert_array_equal(dense[fixed], np.asarray(pred)[fixed])

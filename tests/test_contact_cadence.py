@@ -166,159 +166,3 @@ def test_cadence_validation():
         SolverConfig(self_collision_every=0)
 
 
-def test_hybrid_contact_runner_matches_stencil_cadence():
-    """The hybrid runner (streamed Pallas kernel for contact-free substeps
-    + stencil contact substep, one jit) tracks the all-stencil cadence
-    runner to fp noise, interpret mode."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import lattice_pallas as kp
-
-    spec = lattice.lattice_spec(6, braced=True)
-    st = lat_engine.make_lattice_state(spec, center=(0.0, 0.55, 0.0),
-                                       mass=0.001)
-    cfg = SolverConfig(substeps=6, iterations=1, damping=0.02,
-                       solve_mode=SolveMode.JACOBI, fast_math=True,
-                       gravity_is_acceleration=True,
-                       enable_self_collision=True,
-                       particle_radius=0.45 / 5,
-                       self_collision_backend="blocked",
-                       collision_block_size=128, block_neighbors=2,
-                       self_collision_every=3,
-                       ground_height=0.0, friction=0.3)
-    n_sub = 6
-    ref = lat_engine.make_substep_runner(spec, cfg, DT / 6, n_sub)(st)
-    with pltpu.force_tpu_interpret_mode():
-        out = kp.make_hybrid_contact_runner(spec, cfg, DT / 6, n_sub)(st)
-    d = np.abs(np.asarray(out.positions) - np.asarray(ref.positions)).max()
-    assert np.isfinite(np.asarray(out.positions)).all()
-    assert d < 1e-5, f"hybrid diverges from stencil cadence: {d}"
-
-    with pytest.raises(ValueError):
-        kp.make_hybrid_contact_runner(
-            spec, cfg.replace(self_collision_every=1), DT / 6, n_sub)
-
-
-def test_hybrid_contact_step_matches_stencil_step():
-    """Step semantics (ext-force lifecycle + per-frame cadence):
-    make_hybrid_contact_step == solvers.lattice.make_step to fp noise;
-    make_pallas_step routes contact-cadence configs here."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import lattice_pallas as kp
-
-    spec = lattice.lattice_spec(6, braced=True)
-    st = lat_engine.make_lattice_state(spec, center=(0.0, 0.55, 0.0),
-                                       mass=0.001)
-    # a poke so the ext-force lifecycle is actually exercised
-    f = np.zeros_like(np.asarray(st.ext_force))
-    f[10] = (0.05, 0.2, -0.03)
-    st = st.replace(ext_force=jnp.asarray(f))
-    cfg = SolverConfig(substeps=6, iterations=1, damping=0.02,
-                       solve_mode=SolveMode.JACOBI, fast_math=True,
-                       gravity_is_acceleration=True,
-                       enable_self_collision=True,
-                       particle_radius=0.45 / 5,
-                       self_collision_backend="blocked",
-                       collision_block_size=128, block_neighbors=2,
-                       self_collision_every=3,
-                       ground_height=0.0, friction=0.3)
-    ref = lat_engine.make_step(spec, cfg, DT, n_steps=2)(st)
-    with pltpu.force_tpu_interpret_mode():
-        out = kp.make_pallas_step(spec, cfg, DT, n_steps=2)(st)
-    d = np.abs(np.asarray(out.positions) - np.asarray(ref.positions)).max()
-    assert np.isfinite(np.asarray(out.positions)).all()
-    assert d < 1e-5, f"hybrid step diverges from stencil step: {d}"
-    assert np.abs(np.asarray(out.ext_force)).max() == 0.0
-
-    # cadence not dividing the frame: clean refusal (stencil engine path)
-    with pytest.raises(NotImplementedError):
-        kp.make_hybrid_contact_step(
-            spec, cfg.replace(self_collision_every=4), DT)
-
-
-def test_hybrid_contact_runner_with_tets():
-    """Solid self-colliding bodies: per-cell tet volume + contact cadence
-    compose — the hybrid runner's contact-free substeps run the streamed
-    kernel's in-kernel tet sweep and its contact substeps thread the
-    (lam_dist, lam_tet) tuple through the stencil engine.  Must track the
-    all-stencil cadence runner to fp noise (measured 7.5e-9)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import lattice_pallas as kp
-
-    spec = lattice.lattice_spec(6, braced=True)
-    st = lat_engine.make_lattice_state(spec, center=(0.0, 0.55, 0.0),
-                                       mass=0.001, tet_volume=True)
-    cfg = SolverConfig(substeps=6, iterations=1, damping=0.02,
-                       solve_mode=SolveMode.JACOBI, fast_math=True,
-                       gravity_is_acceleration=True,
-                       enable_tet_volume=True,
-                       enable_self_collision=True,
-                       particle_radius=0.45 / 5,
-                       self_collision_backend="blocked",
-                       collision_block_size=128, block_neighbors=2,
-                       self_collision_every=3,
-                       ground_height=0.0, friction=0.3)
-    n_sub = 6
-    ref = lat_engine.make_substep_runner(spec, cfg, DT / 6, n_sub)(st)
-    assert np.isfinite(np.asarray(ref.positions)).all()
-    with pltpu.force_tpu_interpret_mode():
-        out = kp.make_hybrid_contact_runner(spec, cfg, DT / 6, n_sub)(st)
-    d = np.abs(np.asarray(out.positions) - np.asarray(ref.positions)).max()
-    assert np.isfinite(np.asarray(out.positions)).all()
-    assert out.lambda_tet is not None
-    assert d < 1e-5, f"solid hybrid diverges from stencil cadence: {d}"
-
-
-def test_hybrid_cadence_with_kinematic_colliders_matches_stencil():
-    """Round-5 composition close (VERDICT r4 weak #4): contact cadence +
-    traced kinematic colliders in one hybrid program — the contact-free
-    substeps read the ColliderSet inside the streamed kernel, the stencil
-    contact substeps read the same poses in XLA, and the whole thing must
-    track the all-stencil cadence runner to fp noise.  The config's rigid
-    world is deliberately bogus (ground 123) so only the traced poses can
-    explain agreement."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu import make_colliders
-    from softbodysimulation_tpu.kernels import lattice_pallas as kp
-
-    spec = lattice.lattice_spec(6, braced=True)
-    st = lat_engine.make_lattice_state(spec, center=(0.0, 0.55, 0.0),
-                                       mass=0.001)
-    coll = make_colliders(spheres=[(0.0, 0.2, 0.0, 0.3)],
-                          ground_height=0.0)
-    st = st.replace(colliders=coll)
-    cfg = SolverConfig(substeps=6, iterations=1, damping=0.02,
-                       solve_mode=SolveMode.JACOBI, fast_math=True,
-                       gravity_is_acceleration=True,
-                       enable_self_collision=True,
-                       particle_radius=0.45 / 5,
-                       self_collision_backend="blocked",
-                       collision_block_size=128, block_neighbors=2,
-                       self_collision_every=3,
-                       ground_height=123.0, friction=0.3)
-    n_sub = 6
-    ref = lat_engine.make_substep_runner(spec, cfg, DT / 6, n_sub)(st)
-    with pltpu.force_tpu_interpret_mode():
-        out = kp.make_hybrid_contact_runner(
-            spec, cfg, DT / 6, n_sub, kin_colliders=(1, 0))(st)
-        # step-semantics twin routes through make_pallas_step
-        step = kp.make_pallas_step(spec, cfg, DT, kin_colliders=(1, 0))
-        out_s = step(st)
-        # animating the pose reuses the SAME compiled program
-        moved = st.replace(colliders=coll.with_sphere(
-            0, center=(0.0, 0.45, 0.0), velocity=(0.0, 1.5, 0.0)))
-        out_s2 = step(moved)
-    d = np.abs(np.asarray(out.positions) - np.asarray(ref.positions)).max()
-    assert np.isfinite(np.asarray(out.positions)).all()
-    assert d < 1e-5, f"hybrid+kinematic diverges from stencil cadence: {d}"
-
-    ref_s = lat_engine.make_step(spec, cfg, DT)(st)
-    ds = np.abs(np.asarray(out_s.positions)
-                - np.asarray(ref_s.positions)).max()
-    assert ds < 1e-5, f"hybrid step + colliders mismatch: {ds}"
-    dmove = np.abs(np.asarray(out_s2.positions)
-                   - np.asarray(out_s.positions)).max()
-    assert dmove > 1e-6, "moved collider pose must change the physics"

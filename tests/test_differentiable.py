@@ -1,4 +1,4 @@
-"""Differentiability — a TPU/JAX-native capability the reference cannot
+"""Differentiability — a JAX-native capability the reference cannot
 offer: gradients flow through the whole compiled physics step, enabling
 system identification and control optimisation."""
 

@@ -9,7 +9,6 @@ from softbodysimulation_tpu.examples import (
     config4_interactive_poke,
     config5_batch_1024,
     config7_mesh_farm,
-    config8_fused_kernel,
     config9_tet_solid,
     config10_material_fit,
 )
@@ -82,18 +81,6 @@ def test_config7_mesh_farm():
     assert p[..., 1].min() > -5e-3
     p2 = np.asarray(out2.positions)
     assert np.isfinite(p2).all()
-
-
-def test_config8_fused_kernel():
-    """The fused Pallas engine example: settle + mid-run poke, whole step
-    in one kernel (interpret mode on CPU)."""
-    state = config8_fused_kernel.run(res=5, steps=14, poke_at=8,
-                                     verbose=False)
-    p = np.asarray(state.positions)
-    assert np.isfinite(p).all()
-    assert p[:, 1].min() > -5e-3          # floor respected
-    assert p[:, 0].mean() > 1e-6          # the poke moved the COM +x
-    assert np.abs(np.asarray(state.ext_force)).max() == 0.0
 
 
 def test_config9_tet_solid():

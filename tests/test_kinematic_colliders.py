@@ -18,7 +18,6 @@ animate per step with no recompile.  These tests pin:
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
 from softbodysimulation_tpu import (
     FloorMode,
@@ -273,68 +272,6 @@ def test_stencil_engine_kinematic_matches_general():
     assert ps[:, 1].max() > 1.8
 
 
-def test_streamed_kernel_kinematic_matches_stencil_engine():
-    """The fused streamed kernel takes the ColliderSet poses as one traced
-    VMEM block (kin_colliders=(S, B)); per-substep arithmetic must match
-    the stencil engine's traced-collider path, and moving the pose between
-    calls must change the physics WITHOUT rebuilding the kernel."""
-    from jax.experimental.pallas import tpu as pltpu
-    from softbodysimulation_tpu.kernels import lattice_pallas as lp
-    from softbodysimulation_tpu.solvers import lattice as lat_engine
-    from softbodysimulation_tpu.topology import lattice as lat_topo
-
-    res = 4
-    spec = lat_topo.lattice_spec(res, braced=True)
-    state = lat_engine.make_lattice_state(spec, center=(0, 0.8, 0),
-                                          mass=0.01)
-    coll = make_colliders(spheres=[(0.0, 0.25, 0.0, 0.3)],
-                          boxes=[(0.8, 0.3, 0.0, 0.2, 0.2, 0.2)],
-                          ground_height=0.0)
-    state = state.replace(colliders=coll)
-    cfg = SolverConfig(substeps=8, iterations=2, damping=0.02,
-                       solve_mode=SolveMode.COLORED, ground_height=123.0,
-                       friction=0.3)   # config ground MUST be ignored
-    ref_fn = lat_engine.make_substep_runner(spec, cfg, 1 / 480, 10)
-    with pltpu.force_tpu_interpret_mode():
-        pal_fn = lp.make_pallas_substep_runner_streamed(
-            spec, cfg, 1 / 480, 10, kin_colliders=(1, 1))
-        out_p = pal_fn(state)
-        # second call, sphere swept upward: same program, new pose
-        moved = state.replace(colliders=coll.with_sphere(
-            0, center=(0.0, 0.6, 0.0), velocity=(0.0, 2.0, 0.0)))
-        out_p2 = pal_fn(moved)
-    out_r = ref_fn(state)
-    dpos = np.abs(np.asarray(out_p.positions)
-                  - np.asarray(out_r.positions)).max()
-    assert dpos < 1e-5, f"streamed kinematic vs stencil mismatch {dpos}"
-    assert np.isfinite(np.asarray(out_p2.positions)).all()
-    dmove = np.abs(np.asarray(out_p2.positions)
-                   - np.asarray(out_p.positions)).max()
-    assert dmove > 1e-4, "moved collider pose must change the physics"
-
-    out_r2 = ref_fn(moved)
-    dpos2 = np.abs(np.asarray(out_p2.positions)
-                   - np.asarray(out_r2.positions)).max()
-    assert dpos2 < 1e-5, f"moved-pose kinematic mismatch {dpos2}"
-
-
-def test_streamed_kernel_without_kin_rejects_collider_state():
-    from jax.experimental.pallas import tpu as pltpu
-    from softbodysimulation_tpu.kernels import lattice_pallas as lp
-    from softbodysimulation_tpu.solvers import lattice as lat_engine
-    from softbodysimulation_tpu.topology import lattice as lat_topo
-
-    spec = lat_topo.lattice_spec(3, braced=True)
-    state = lat_engine.make_lattice_state(spec, center=(0, 0.8, 0))
-    state = state.replace(colliders=make_colliders(ground_height=0.0))
-    cfg = SolverConfig(substeps=2, iterations=2,
-                       solve_mode=SolveMode.COLORED)
-    with pltpu.force_tpu_interpret_mode():
-        fn = lp.make_pallas_substep_runner_streamed(spec, cfg, 1 / 480, 2)
-        with pytest.raises(NotImplementedError):
-            fn(state)
-
-
 def test_sphere_sweep_scene_pushes_slab():
     """The catalogued animated-collider scene: the scripted sphere plows
     through the slab and shoves it along +x."""
@@ -351,52 +288,3 @@ def test_sphere_sweep_scene_pushes_slab():
     assert p[:, 0].mean() > x0 + 0.05, (x0, p[:, 0].mean())
 
 
-def test_mesh_kernel_kinematic_matches_general_engine():
-    """The fused MESH kernel's traced collider block must match the
-    general engine's windowed path, and a moved pose must change the
-    physics on the SAME kernel program."""
-    from jax.experimental.pallas import tpu as pltpu
-    from softbodysimulation_tpu.kernels import mesh_pallas
-    from softbodysimulation_tpu.topology import build as B2
-    from softbodysimulation_tpu.topology.edges import unique_edges
-
-    m = mesh.icosphere(2)
-    pos2, topo = B2.build_windowed_topology(
-        m.vertices, unique_edges(m.triangles), 1e-3,
-        triangles=m.triangles)
-    pos2 = pos2 + np.array([0, 0.8, 0], np.float32)
-    st = state_from_topology(topo, pos2)
-    coll = make_colliders(spheres=[(0.3, 0.4, 0.0, 0.35)],
-                          boxes=[(-0.6, 0.3, 0.0, 0.25, 0.25, 0.25)],
-                          ground_height=0.0)
-    st = st.replace(colliders=coll)
-    # jacobi_rho=0: the box's push-axis argmin is discontinuous at box
-    # edges; Chebyshev amplifies a 1-ulp branch flip there to ~1e-3
-    # (chaos caveat, BENCHMARKS.md) — parity is asserted without the
-    # amplifier
-    cfg = SolverConfig(substeps=2, iterations=4, damping=0.02,
-                       solve_mode=SolveMode.JACOBI, jacobi_rho=0.0,
-                       distance_backend="windowed",
-                       ground_height=77.0,   # MUST be ignored
-                       friction=0.3)
-    ref_fn = G.make_step(topo, cfg, DT, n_steps=4)
-    out_r = ref_fn(st)
-    with pltpu.force_tpu_interpret_mode():
-        pal_fn = mesh_pallas.make_mesh_substep_runner(
-            topo, cfg, DT / cfg.substeps, 4 * cfg.substeps,
-            block_edges=128, with_ext=True, kin_colliders=(1, 1))
-        out_p = pal_fn(st)
-        moved = st.replace(colliders=coll.with_sphere(
-            0, center=(0.0, 0.9, 0.0), velocity=(0.0, 1.0, 0.0)))
-        out_p2 = pal_fn(moved)
-    dpos = np.abs(np.asarray(out_p.positions)
-                  - np.asarray(out_r.positions)).max()
-    assert np.isfinite(np.asarray(out_p.positions)).all()
-    assert dpos < 2e-5, f"mesh kernel kinematic mismatch {dpos}"
-    out_r2 = ref_fn(moved)
-    dpos2 = np.abs(np.asarray(out_p2.positions)
-                   - np.asarray(out_r2.positions)).max()
-    assert dpos2 < 2e-5, f"moved-pose mesh kinematic mismatch {dpos2}"
-    dmove = np.abs(np.asarray(out_p2.positions)
-                   - np.asarray(out_p.positions)).max()
-    assert dmove > 1e-4

@@ -69,8 +69,7 @@ def test_backends_agree_on_inter_body_contact(scene):
     positional agreement is deliberately loose — contact discovery order
     differs between backends and the dynamics are contact-rich, so
     trajectories diverge at fp-noise-amplified (dm) scale across
-    platforms/JAX versions (the repo's own chaos caveat,
-    BENCHMARKS.md "Chaos caveat")."""
+    platforms/JAX versions (ROADMAP.md "Chaos caveat")."""
     state, _, info = scene
     nc = info["n_cloth"]
     finals = {}
@@ -188,7 +187,7 @@ def test_merge_topologies_windowed_keeps_slices():
     """windowed=True routes the merge through build_windowed_topology with
     the IDENTITY particle order: every BodySlices range stays valid, the
     positions come back unpermuted, and the merged topology carries the
-    MXU window structure (fused mesh kernel / windowed engine backend)."""
+    one-hot window structure (the windowed engine backend)."""
     m = TM.grid_plane(1.0, 4)
     ed = TE.unique_edges(m.triangles)
     b1 = B.BodySpec(m.vertices, ed, 1e-5, triangles=m.triangles)

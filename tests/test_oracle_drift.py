@@ -196,8 +196,8 @@ def test_drift_welded_bunny_bending_contact():
     regime where trajectory drift measures ENGINE fidelity.  (A free-falling
     under-converged shell is chaotic: fp noise amplifies exponentially after
     first contact in both engines identically-configured — measured and
-    documented in BENCHMARKS.md; the 10k-step full-scale run is recorded
-    there as well.)"""
+    documented in ROADMAP.md "Chaos caveat"; scripts/drift_bunny_10k.py
+    runs the 10k-step full-scale version.)"""
     from softbodysimulation_tpu import LambdaMode
     from softbodysimulation_tpu.topology import edges as tedges
     from softbodysimulation_tpu.topology.objloader import load_obj

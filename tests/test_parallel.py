@@ -68,51 +68,6 @@ class TestSharded:
         assert np.allclose(np.asarray(out_s.positions),
                            np.asarray(out_l.positions), atol=1e-5)
 
-    def test_sharded_pallas_rollout_matches_xla(self):
-        """DP shard_map x the fused ensemble Pallas kernel per shard must
-        match the (unsharded) lane-folded XLA engine on the virtual mesh
-        (raw rollout: zero external forces)."""
-        from jax.experimental.pallas import tpu as pltpu
-
-        spec, batched = make_ensemble(16, res=4)
-        cfg = cfg_default(lambda_mode=LambdaMode.RESET)
-        mesh = pbatch.make_mesh(8)
-        sharded = pbatch.shard_batched_state(batched, mesh)
-        n_sub = 3 * cfg.substeps
-        with pltpu.force_tpu_interpret_mode():
-            # backend pinned: auto would (correctly) route this tiny
-            # lane-folded geometry to XLA — here we are testing the KERNEL
-            out_s = pbatch.make_sharded_pallas_rollout(
-                spec, cfg, DT / cfg.substeps, n_sub, mesh, 16,
-                backend="pallas")(sharded)
-            got = np.asarray(out_s.positions)
-        ref = lat_engine.make_batched_step(spec, cfg, DT, 16,
-                                           n_steps=3)(batched)
-        assert np.allclose(got, np.asarray(ref.positions), atol=1e-5)
-
-    def test_ensemble_backend_auto_routing(self):
-        """The sharded rollout runs each geometry's MEASURED winner
-        (BENCH_SUITE_r04 ensemble64p: tiny lane-folded lattices -> vmap
-        XLA; lane-filling lattices -> the fused ensemble kernel)."""
-        assert pbatch.pick_lattice_ensemble_backend(
-            lattice.lattice_spec(4)) == "xla"        # 1024x64p geometry
-        assert pbatch.pick_lattice_ensemble_backend(
-            lattice.lattice_spec(12)) == "pallas"    # fills the 128 lanes
-
-        spec, batched = make_ensemble(16, res=4)
-        cfg = cfg_default(lambda_mode=LambdaMode.RESET)
-        mesh = pbatch.make_mesh(8)
-        step = pbatch.make_sharded_pallas_rollout(
-            spec, cfg, DT / cfg.substeps, 2 * cfg.substeps, mesh, 16)
-        assert step.ensemble_backend == "xla"
-        # the auto (XLA) route must still advance the sharded ensemble
-        # identically to the unsharded batched engine
-        sharded = pbatch.shard_batched_state(batched, mesh)
-        out = step(sharded)
-        ref = lat_engine.make_batched_step(spec, cfg, DT, 16,
-                                           n_steps=2)(batched)
-        assert np.allclose(np.asarray(out.positions),
-                           np.asarray(ref.positions), atol=1e-5)
 
     def test_sharded_ensemble_diagnostics(self):
         spec, batched = make_ensemble(16)
@@ -209,7 +164,7 @@ def test_lane_batched_lattice_matches_vmap():
 
 
 def test_sharded_general_mesh_ensemble_matches_vmap():
-    """DP over mesh bodies across chips (windowed MXU backend replicated
+    """DP over mesh bodies across chips (windowed one-hot backend replicated
     per chip, body axis split over the 8-device virtual mesh)."""
     import jax.numpy as jnp
 
@@ -241,230 +196,96 @@ def test_sharded_general_mesh_ensemble_matches_vmap():
     assert np.isfinite(np.asarray(out_sh.positions)).all()
 
 
-def test_sharded_mesh_pallas_rollout_matches_single_kernel():
-    """DP x fused ensemble MESH kernel: 8 bunnies over a 4-device mesh
-    (2 bodies/chip) must match the single-device ensemble kernel —
-    per-body arithmetic is row- and shard-independent."""
-    from jax.experimental.pallas import tpu as pltpu
+@pytest.mark.parametrize("kin", [False, True], ids=["plain", "kinematic"])
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
+def test_sharded_lattice_rollout_matches_vmap(n_dev, kin):
+    """The DP raw-substep rollout (one slab of bodies per device, zero
+    hot-loop collectives) equals the vmapped substep runner on one
+    device, with and without a shared kinematic collider."""
+    from softbodysimulation_tpu import make_colliders
 
-    from softbodysimulation_tpu import state_from_topology
-    from softbodysimulation_tpu.kernels import mesh_pallas
-    from softbodysimulation_tpu.topology import build, mesh
-
-    m = mesh.icosphere(1, radius=0.4)
-    pos, topo = build.topology_from_mesh(
-        m, compliance=1e-4, windowed=True, block_edges=64)
-    cfg = SolverConfig(substeps=2, iterations=2, damping=0.02,
-                       solve_mode=SolveMode.JACOBI, jacobi_rho=0.9,
-                       lambda_mode=LambdaMode.RESET,
-                       distance_backend="windowed",
-                       ground_height=0.0, friction=0.3)
-    nb = 8
-    st = state_from_topology(topo, pos + np.array([0, 1.0, 0], np.float32))
-    rng = np.random.RandomState(2)
-    offs = rng.uniform(-1, 1, (nb, 3)).astype(np.float32)
-    z = np.zeros((nb,) + tuple(st.positions.shape), np.float32)
-    batched = st.replace(
-        positions=np.asarray(st.positions)[None] + offs[:, None, :],
-        velocities=z, ext_force=z,
-        lambda_dist=np.zeros((nb, topo.n_edges), np.float32),
-        lambda_bend=np.zeros((nb, topo.n_hinges), np.float32))
-    n_sub = 2 * cfg.substeps
-    devmesh = pbatch.make_mesh(4)
-    with pltpu.force_tpu_interpret_mode():
-        out_s = pbatch.make_sharded_mesh_pallas_rollout(
-            topo, cfg, DT / cfg.substeps, n_sub, devmesh, nb,
-            block_edges=64)(batched)
-        ref = mesh_pallas.make_mesh_substep_runner(
-            topo, cfg, DT / cfg.substeps, n_sub, with_ext=True,
-            n_bodies=nb, block_edges=64)(batched)
-    got = np.asarray(out_s.positions)
-    want = np.asarray(ref.positions)
-    assert np.isfinite(got).all()
-    assert np.abs(got - want).max() < 1e-6
-    assert out_s.lambda_dist.shape == (nb, topo.n_edges)
+    spec, batched = make_ensemble(n_dev, res=3)
+    cfg = cfg_default(substeps=2, iterations=2)
+    mesh = pbatch.make_mesh(n_dev)
+    runner = lat_engine.make_substep_runner(spec, cfg, DT / 2, 12)
+    sharded = pbatch.shard_batched_state(batched, mesh)
+    if kin:
+        coll = make_colliders(spheres=[(0.0, 1.0, 0.0, 0.6)],
+                              ground_height=0.0)
+        roll = pbatch.make_sharded_lattice_rollout(
+            spec, cfg, DT / 2, 12, mesh, n_dev, kin_colliders=(1, 0))
+        out = roll(sharded, coll)
+        ref = jax.vmap(lambda s: runner(s.replace(colliders=coll)))(batched)
+    else:
+        roll = pbatch.make_sharded_lattice_rollout(spec, cfg, DT / 2, 12,
+                                                   mesh, n_dev)
+        out = roll(sharded)
+        ref = jax.vmap(runner)(batched)
+    d = np.abs(np.asarray(out.positions) - np.asarray(ref.positions)).max()
+    assert d < 1e-6, d
+    assert out.colliders is None
 
 
-def test_sharded_mesh_pallas_rollout_with_tets():
-    """The per-tet volume family rides the sharded mesh rollout: a solid
-    (centroid-fan) ball farm over a 4-device mesh, lambda_tet split on the
-    body axis, must match the single-device ensemble kernel."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu import state_from_topology
-    from softbodysimulation_tpu.kernels import mesh_pallas
-    from softbodysimulation_tpu.topology import build, mesh
-    from softbodysimulation_tpu.topology import tets as T
-
-    m = mesh.icosphere(1, radius=0.4)
-    verts, tt = T.tets_from_surface_centroid(m.vertices, m.triangles)
-    pos, topo = build.build_windowed_topology(
-        verts, T.tet_edges(tt), 1e-4, tets=tt, tet_compliance=0.0,
-        triangles=T.boundary_faces(tt), block_edges=64)
-    cfg = SolverConfig(substeps=2, iterations=2, damping=0.02,
-                       solve_mode=SolveMode.JACOBI, jacobi_rho=0.9,
-                       lambda_mode=LambdaMode.RESET,
-                       enable_tet_volume=True,
-                       distance_backend="windowed",
-                       ground_height=0.0, friction=0.3)
-    nb = 8
-    st = state_from_topology(topo, pos + np.array([0, 1.0, 0], np.float32))
-    rng = np.random.RandomState(3)
-    offs = rng.uniform(-1, 1, (nb, 3)).astype(np.float32)
-    z = np.zeros((nb,) + tuple(st.positions.shape), np.float32)
-    batched = st.replace(
-        positions=np.asarray(st.positions)[None] + offs[:, None, :],
-        velocities=z, ext_force=z,
-        lambda_dist=np.zeros((nb, topo.n_edges), np.float32),
-        lambda_bend=np.zeros((nb, topo.n_hinges), np.float32),
-        lambda_tet=np.zeros((nb, topo.n_tets), np.float32))
-    n_sub = 2 * cfg.substeps
-    devmesh = pbatch.make_mesh(4)
-    with pltpu.force_tpu_interpret_mode():
-        out_s = pbatch.make_sharded_mesh_pallas_rollout(
-            topo, cfg, DT / cfg.substeps, n_sub, devmesh, nb,
-            block_edges=64)(batched)
-        ref = mesh_pallas.make_mesh_substep_runner(
-            topo, cfg, DT / cfg.substeps, n_sub, with_ext=True,
-            n_bodies=nb, block_edges=64)(batched)
-    assert np.isfinite(np.asarray(out_s.positions)).all()
-    assert np.abs(np.asarray(out_s.positions)
-                  - np.asarray(ref.positions)).max() < 1e-6
-    np.testing.assert_allclose(np.asarray(out_s.lambda_tet),
-                               np.asarray(ref.lambda_tet), atol=1e-6)
-    assert out_s.lambda_tet.shape == (nb, topo.n_tets)
+def test_sharded_lattice_rollout_rejects_uneven_split():
+    spec, _ = make_ensemble(1)
+    with pytest.raises(ValueError, match="must divide"):
+        pbatch.make_sharded_lattice_rollout(spec, cfg_default(), DT, 4,
+                                            pbatch.make_mesh(4), 6)
 
 
-def test_differentiable_sharded_mesh_rollout_grads():
-    """Distributed differentiable farm: gradients of a loss over the whole
-    sharded multi-chip farm (fused kernel per chip forward, shard_map'd
-    engine backward) must match differentiating the plain vmapped engine
-    — including the psum'd cotangent for the REPLICATED inv_mass leaf."""
+@pytest.mark.parametrize("per_body_mass,remat", [(False, 0), (True, 0),
+                                                 (False, 2), (True, 2)])
+def test_differentiable_sharded_mesh_rollout_matches_vmap(per_body_mass,
+                                                          remat):
+    """The distributed differentiable farm: forward and inv_mass
+    gradients equal the vmapped general engine on one device (ext force
+    consumed on the first substep, zero after; remat chunks the tail)."""
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
 
     from softbodysimulation_tpu import state_from_topology
     from softbodysimulation_tpu.solvers import general
     from softbodysimulation_tpu.topology import build, mesh
-    from softbodysimulation_tpu.topology.edges import unique_edges
 
-    m = mesh.icosphere(1)
-    pos, topo = build.build_windowed_topology(
-        m.vertices, unique_edges(m.triangles), 1e-4, triangles=m.triangles,
-        block_edges=64)
-    cfg = SolverConfig(substeps=2, iterations=2, damping=0.02,
-                       solve_mode=SolveMode.JACOBI, jacobi_rho=0.0,
-                       lambda_mode=LambdaMode.RESET,
-                       distance_backend="windowed",
-                       ground_height=-2.0)
-    nb, n_sub = 4, 4
+    pos, topo = build.topology_from_mesh(mesh.icosphere(1, radius=0.4),
+                                         compliance=1e-4)
+    cfg = SolverConfig(substeps=5, iterations=2, damping=0.02,
+                       solve_mode=SolveMode.JACOBI, ground_height=0.0,
+                       friction=0.3)
+    nb, n = 4, pos.shape[0]
     st = state_from_topology(topo, pos + np.array([0, 0.6, 0], np.float32))
-    rng = np.random.RandomState(5)
-    offs = rng.uniform(-1, 1, (nb, 3)).astype(np.float32)
-    z = np.zeros((nb,) + tuple(st.positions.shape), np.float32)
+    rng = np.random.default_rng(0)
+    offs = rng.uniform(-0.2, 0.2, (nb, 1, 3)).astype(np.float32)
+    ext = np.zeros((nb, n, 3), np.float32)
+    ext[:, :4] = (0.0, 30.0, 0.0)
+    w = np.asarray(st.inv_mass)
+    w_b = np.stack([w * (1.0 + 0.2 * b) for b in range(nb)])
     batched = st.replace(
-        positions=np.asarray(st.positions)[None] + offs[:, None, :],
-        velocities=z, ext_force=z,
-        lambda_dist=np.zeros((nb, topo.n_edges), np.float32),
-        lambda_bend=np.zeros((nb, topo.n_hinges), np.float32))
-    devmesh = pbatch.make_mesh(4)
+        positions=jnp.asarray(np.asarray(st.positions)[None] + offs),
+        velocities=jnp.zeros((nb, n, 3)), ext_force=jnp.asarray(ext),
+        lambda_dist=jnp.zeros((nb, topo.n_edges)),
+        lambda_bend=jnp.zeros((nb, topo.n_hinges)),
+        inv_mass=jnp.asarray(w_b if per_body_mass else w))
+    mesh_dp = pbatch.make_mesh(4)
+    farm = pbatch.make_differentiable_sharded_mesh_rollout(
+        topo, cfg, DT / cfg.substeps, cfg.substeps, mesh_dp, nb,
+        per_body_mass=per_body_mass, remat_chunk=remat)
+    one = general.make_step(topo, cfg, DT)
 
-    with pltpu.force_tpu_interpret_mode():
-        run = pbatch.make_differentiable_sharded_mesh_rollout(
-            topo, cfg, DT / cfg.substeps, n_sub, devmesh, nb,
-            block_edges=64)
+    def ref_run(b):
+        im = b.inv_mass if per_body_mass else jnp.broadcast_to(
+            b.inv_mass, (nb, n))
+        return jax.vmap(one)(b.replace(
+            inv_mass=im, lambda_volume=jnp.zeros((nb,), jnp.float32)))
 
-        def loss_pal(v0, im):
-            s = batched.replace(
-                velocities=jnp.broadcast_to(v0, batched.velocities.shape),
-                inv_mass=im)
-            return jnp.sum(run(s).positions ** 2)
+    def loss(run, im):
+        return jnp.sum(run(batched.replace(inv_mass=im)).positions[..., 1])
 
-        v0 = jnp.asarray([0.2, 0.0, -0.1])
-        val_p, grads_p = jax.value_and_grad(loss_pal, argnums=(0, 1))(
-            v0, st.inv_mass)
-
-    # plain vmapped engine twin (no sharding)
-    from jax import lax
-
-    def one(state):
-        s = general._substep(state, topo, cfg, DT / cfg.substeps,
-                             apply_ext=True)
-
-        def body(c, _):
-            return general._substep(c, topo, cfg, DT / cfg.substeps,
-                                    apply_ext=False), None
-
-        s, _ = lax.scan(body, s, None, length=n_sub - 1)
-        return s
-
-    def loss_ref(v0, im):
-        full = batched.replace(
-            velocities=jnp.broadcast_to(v0, batched.velocities.shape),
-            inv_mass=jnp.broadcast_to(im[None], (nb,) + im.shape),
-            lambda_volume=jnp.zeros((nb,), np.float32))
-        out = jax.vmap(one)(full)
-        return jnp.sum(out.positions ** 2)
-
-    val_r, grads_r = jax.value_and_grad(loss_ref, argnums=(0, 1))(
-        jnp.asarray([0.2, 0.0, -0.1]), st.inv_mass)
-    # ref broadcasts inv_mass per body, so its grad is already the body sum
-    assert abs(float(val_p) - float(val_r)) / abs(float(val_r)) < 1e-4
-    for gp, gr, name in ((grads_p[0], grads_r[0], "v0"),
-                         (grads_p[1], grads_r[1], "inv_mass")):
-        gp, gr = np.asarray(gp), np.asarray(gr)
-        assert np.isfinite(gr).all(), name
-        np.testing.assert_allclose(gp, gr, rtol=2e-4, atol=1e-6,
-                                   err_msg=name)
-    assert np.abs(np.asarray(grads_r[1])).max() > 1e-4
-
-
-@pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 devices")
-def test_sharded_rollout_shared_kinematic_colliders():
-    """Round-5 composition close (VERDICT r4 weak #4): DP-sharded farm
-    rollouts thread ONE shared traced ColliderSet to every chip — both
-    the vmapped-XLA route and the fused ensemble-kernel route — and the
-    result matches the per-body single-chip runner with the same poses."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu import make_colliders
-
-    spec, batched = make_ensemble(8, res=4)
-    cfg = cfg_default(lambda_mode=LambdaMode.RESET, ground_height=77.0)
-    coll = make_colliders(spheres=[(0.0, 0.6, 0.0, 0.45)],
-                          ground_height=0.0)
-    mesh = pbatch.make_mesh(8)
-    sharded = pbatch.shard_batched_state(batched, mesh)
-    n_sub = 2 * cfg.substeps
-
-    step = pbatch.make_sharded_pallas_rollout(
-        spec, cfg, DT / cfg.substeps, n_sub, mesh, 8, kin_colliders=(1, 0))
-    assert step.ensemble_backend == "xla"
-    out = step(sharded, coll)
-
-    runner = lat_engine.make_substep_runner(spec, cfg, DT / cfg.substeps,
-                                            n_sub)
-    for i in (0, 3, 7):
-        want = runner(pbatch.body_slice(batched, i).replace(colliders=coll))
-        got = np.asarray(pbatch.body_slice(out, i).positions)
-        assert np.allclose(got, np.asarray(want.positions),
-                           atol=1e-5), f"body {i}"
-
-    # the fused ensemble-kernel route honors the same shared world
-    with pltpu.force_tpu_interpret_mode():
-        stepk = pbatch.make_sharded_pallas_rollout(
-            spec, cfg, DT / cfg.substeps, n_sub, mesh, 8,
-            backend="pallas", kin_colliders=(1, 0))
-        outk = stepk(sharded, coll)
-    dk = np.abs(np.asarray(outk.positions)
-                - np.asarray(out.positions)).max()
-    assert dk < 1e-5, f"kernel-route shared colliders diverge: {dk}"
-
-    # the XLA sharded STEP factory takes the same (batched, colliders)
-    stepx = pbatch.make_sharded_lattice_step(spec, cfg, DT, mesh,
-                                             n_steps=2, kin_colliders=True)
-    outx = stepx(sharded, coll)
-    wantx = lat_engine.make_step(spec, cfg, DT, n_steps=2)(
-        pbatch.body_slice(batched, 5).replace(colliders=coll))
-    assert np.allclose(np.asarray(pbatch.body_slice(outx, 5).positions),
-                       np.asarray(wantx.positions), atol=1e-5)
+    out, ref = farm(batched), ref_run(batched)
+    assert np.abs(np.asarray(out.positions)
+                  - np.asarray(ref.positions)).max() < 1e-5
+    assert np.abs(np.asarray(out.ext_force)).max() == 0.0
+    g = np.asarray(jax.grad(lambda im: loss(farm, im))(batched.inv_mass))
+    g1 = np.asarray(jax.grad(lambda im: loss(ref_run, im))(
+        batched.inv_mass))
+    assert g.shape == g1.shape and np.abs(g1).max() > 0
+    np.testing.assert_allclose(g, g1, rtol=1e-4, atol=1e-6)

@@ -61,59 +61,6 @@ def test_cli_run_with_export_and_checkpoint(tmp_path):
     assert os.path.exists(obj) and os.path.exists(ckpt)
 
 
-def test_cli_run_pallas_engine(tmp_path):
-    """--engine pallas fuses the lattice step in the streamed Mosaic
-    kernel (interpret mode on the cpu platform)."""
-    ckpt = os.path.join(tmp_path, "s.npz")
-    r = _run_cli("run", "flagship", "--steps", "3", "--platform", "cpu",
-                 "--engine", "pallas", "--log-every", "0",
-                 "--checkpoint", ckpt)
-    assert r.returncode == 0, r.stderr
-    assert "done: 3 steps" in r.stdout
-    assert os.path.exists(ckpt)
-
-
-def test_cli_run_pallas_engine_mesh_scene(tmp_path):
-    """--engine pallas on a MESH scene routes to the fused mesh-substep
-    kernel (interpret mode).  cloth is windowed+JACOBI so it fuses;
-    configs outside the kernel envelope (volume constraint) get a clean
-    refusal with guidance.  (cpu_mesh itself now fuses too — COLORED
-    in-kernel — but at 2.5k particles interpret mode is too slow for the
-    hermetic suite; kernel COLORED equivalence is covered in
-    tests/test_mesh_pallas.py.)"""
-    ckpt = os.path.join(tmp_path, "s.npz")
-    r = _run_cli("run", "cloth", "--steps", "2", "--platform", "cpu",
-                 "--engine", "pallas", "--log-every", "0",
-                 "--checkpoint", ckpt)
-    assert r.returncode == 0, r.stderr
-    assert "done: 2 steps" in r.stdout
-    assert os.path.exists(ckpt)
-
-    # self-collision at every-substep cadence is (by design) outside the
-    # fused mesh kernel's envelope -> clean refusal with guidance.
-    # (enable_volume used to be the refusal probe here; the in-kernel
-    # global volume constraint moved it INSIDE the envelope.)
-    r = _run_cli("run", "cpu_mesh", "--steps", "1", "--platform", "cpu",
-                 "--engine", "pallas", "--set",
-                 "enable_self_collision=true")
-    assert r.returncode == 2
-    assert "outside the fused kernel's envelope" in r.stderr
-
-
-def test_cloth_xl_scene_is_synth_scale():
-    """cloth_xl must exceed the resident-matrix budget so it exercises
-    the synthesized one-hot spelling (plan-level check; the full run is
-    hardware-scale)."""
-    from softbodysimulation_tpu.core.scenes import cloth_xl
-    from softbodysimulation_tpu.kernels import mesh_pallas
-
-    state, step, info = cloth_xl()
-    plan = mesh_pallas.build_mesh_plan(
-        info["topology"], info["config"], info["dt"] / 4)
-    assert plan.synth
-    assert info["topology"].n_edges > 20_000
-
-
 def test_cli_unknown_scene_fails_cleanly():
     r = _run_cli("run", "nope", "--platform", "cpu")
     assert r.returncode == 2
@@ -145,19 +92,6 @@ def test_cli_set_rejects_unknown_field_and_bad_value():
     assert "invalid config" in r.stderr
 
 
-def test_cli_run_pallas_engine_kinematic_scene(tmp_path):
-    """--engine pallas on the animated-collider scene: the scene's
-    per-frame collider schedule drives the streamed kernel's traced
-    collider block (kin_colliders) — the verdict item-1 'done' check."""
-    ckpt = os.path.join(tmp_path, "s.npz")
-    r = _run_cli("run", "sphere_sweep", "--steps", "2", "--platform",
-                 "cpu", "--engine", "pallas", "--log-every", "0",
-                 "--checkpoint", ckpt)
-    assert r.returncode == 0, r.stderr
-    assert "done: 2 steps" in r.stdout
-    assert os.path.exists(ckpt)
-
-
 def test_cli_log_every_samples_blocked_exactness():
     """--log-every on a blocked-backend scene prints BOTH contact
     diagnostics: the conservative AABB overflow and the round-5
@@ -169,3 +103,37 @@ def test_cli_log_every_samples_blocked_exactness():
     assert r.returncode == 0, r.stderr[-500:]
     assert "contact_overflow=" in r.stdout
     assert "dropped_pairs=" in r.stdout
+
+
+def test_ball_on_cloth_rejects_a_tunnelling_contact_radius():
+    # 140 nodes across the default 1.2-unit cloth: the derived contact
+    # radius falls below the per-substep fall distance
+    from softbodysimulation_tpu.core.scenes import ball_on_cloth
+
+    with pytest.raises(ValueError, match="tunnel"):
+        ball_on_cloth(cloth_res=140)
+
+
+def test_ball_on_cloth_xl_is_exact_blocked_contact_at_cadence():
+    from softbodysimulation_tpu.diag.diagnostics import blocked_dropped_pairs
+
+    state, _, info = SCENES["ball_on_cloth_xl"]()
+    cfg = info["config"]
+    assert info["topology"].n_particles > 20_000
+    assert (cfg.self_collision_backend, cfg.self_collision_every,
+            cfg.block_neighbors) == ("blocked", 3, 18)
+    assert 2 * cfg.particle_radius < 3.5 / 139
+    assert blocked_dropped_pairs(state, cfg) == 0
+
+
+def test_graft_entry_step_runs():
+    import jax
+
+    sys.path.insert(0, REPO)
+    import __graft_entry__ as entry
+
+    fn, args = entry.entry()
+    out = jax.jit(fn)(*args)
+    p = np.asarray(out.positions)
+    assert p.shape == args[0].positions.shape and np.isfinite(p).all()
+    assert p[:, 1].min() < float(np.asarray(args[0].positions)[:, 1].min())

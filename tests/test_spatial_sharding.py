@@ -141,7 +141,7 @@ def test_sharded_sphere_collider_matches():
 
 
 def test_sharded_kinematic_collider_sweeps_across_mesh():
-    """Round-5 composition close (VERDICT r4 weak #4): the spatially-
+    """Kinematic colliders on the spatial engine: the spatially-
     sharded engine reads the state's TRACED ColliderSet (replicated to
     every chip) instead of config constants — a sphere sweeping along the
     sharded x-axis crosses every shard boundary and must track the
@@ -185,7 +185,6 @@ def test_sharded_kinematic_collider_sweeps_across_mesh():
     # contract checks: missing / mismatched ColliderSet
     with pytest.raises(ValueError):
         step_sh(st_sh.replace(colliders=None))
-    with pytest.raises(NotImplementedError):
-        spatial.make_spatial_lattice_step(spec, cfg, DT, mesh,
-                                          backend="pallas",
-                                          kin_colliders=(1, 0))
+    with pytest.raises(ValueError, match="kin_colliders"):
+        step_sh(st_sh.replace(colliders=make_colliders(
+            spheres=[(0.0, 0.9, 0.0, 0.4)] * 2, ground_height=0.0)))

@@ -339,210 +339,7 @@ def test_tet_rollout_is_differentiable():
     assert float(g) > 0.0
 
 
-# ------------------------------------------------- fused mesh kernel twin
-def _windowed_tet_setup(res=4, **cfg_kw):
-    pos = L.lattice_points(res) + np.array([0, 1.0, 0])
-    tt = T.fix_orientation(pos, T.cube_lattice_tets(res))
-    pos2, topo = B.build_windowed_topology(
-        pos, T.tet_edges(tt), 1e-4, tets=tt, tet_compliance=1e-6,
-        triangles=T.boundary_faces(tt))
-    cfg_kw.setdefault("substeps", 2)
-    cfg_kw.setdefault("iterations", 3)
-    cfg_kw.setdefault("solve_mode", SolveMode.JACOBI)
-    cfg = SolverConfig(damping=0.02, enable_tet_volume=True,
-                       distance_backend="windowed",
-                       ground_height=0.0, friction=0.3, **cfg_kw)
-    return state_from_topology(topo, pos2), topo, cfg
-
-
-@pytest.mark.parametrize("lmode,rho", [
-    (LambdaMode.RESET, 0.9),
-    (LambdaMode.DECAY, 0.0),
-    (LambdaMode.WARM_START, 0.9),
-])
-def test_mesh_kernel_tets_track_engine(lmode, rho):
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import mesh_pallas
-
-    st, topo, cfg = _windowed_tet_setup(lambda_mode=lmode, jacobi_rho=rho,
-                                        lambda_decay=0.98)
-    n_steps = 4
-    out_r = general.make_step(topo, cfg, 1 / 60., n_steps=n_steps)(st)
-    with pltpu.force_tpu_interpret_mode():
-        fn = mesh_pallas.make_mesh_substep_runner(
-            topo, cfg, (1 / 60.) / cfg.substeps, n_steps * cfg.substeps,
-            block_edges=128, with_ext=True)
-        out_p = fn(st)
-    dpos = np.abs(np.asarray(out_p.positions)
-                  - np.asarray(out_r.positions)).max()
-    dlam = np.abs(np.asarray(out_p.lambda_tet)
-                  - np.asarray(out_r.lambda_tet)).max()
-    assert np.isfinite(np.asarray(out_p.positions)).all()
-    assert dpos < 2e-5, f"kernel/engine tet position mismatch {dpos}"
-    assert dlam < 1e-5, f"kernel/engine tet lambda mismatch {dlam}"
-
-
-def test_mesh_kernel_tets_pinned():
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import mesh_pallas
-
-    st, topo, cfg = _windowed_tet_setup()
-    pins = np.arange(4)
-    st = st.replace(inv_mass=st.inv_mass.at[pins].set(0.0))
-    out_r = general.make_step(topo, cfg, 1 / 60., n_steps=3)(st)
-    with pltpu.force_tpu_interpret_mode():
-        fn = mesh_pallas.make_mesh_substep_runner(
-            topo, cfg, (1 / 60.) / cfg.substeps, 3 * cfg.substeps,
-            block_edges=128, with_ext=True)
-        out_p = fn(st)
-    np.testing.assert_array_equal(
-        np.asarray(out_p.positions)[pins], np.asarray(st.positions)[pins])
-    dpos = np.abs(np.asarray(out_p.positions)
-                  - np.asarray(out_r.positions)).max()
-    assert dpos < 2e-5
-
-
-def test_mesh_kernel_tets_ensemble_matches_single():
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import mesh_pallas
-
-    st, topo, cfg = _windowed_tet_setup(res=3)
-    nb = 2
-    batched = st.replace(
-        positions=jnp.stack([st.positions] * nb),
-        velocities=jnp.stack([st.velocities] * nb),
-        ext_force=jnp.stack([st.ext_force] * nb),
-        lambda_dist=jnp.stack([st.lambda_dist] * nb),
-        lambda_bend=jnp.stack([st.lambda_bend] * nb),
-        lambda_tet=jnp.stack([st.lambda_tet] * nb),
-    )
-    with pltpu.force_tpu_interpret_mode():
-        f1 = mesh_pallas.make_mesh_substep_runner(
-            topo, cfg, (1 / 60.) / cfg.substeps, 2 * cfg.substeps,
-            block_edges=128, with_ext=True)
-        fb = mesh_pallas.make_mesh_substep_runner(
-            topo, cfg, (1 / 60.) / cfg.substeps, 2 * cfg.substeps,
-            block_edges=128, with_ext=True, n_bodies=nb)
-        out1 = f1(st)
-        outb = fb(batched)
-    for b in range(nb):
-        np.testing.assert_array_equal(
-            np.asarray(outb.positions)[b], np.asarray(out1.positions))
-        np.testing.assert_array_equal(
-            np.asarray(outb.lambda_tet)[b], np.asarray(out1.lambda_tet))
-
-
-def test_mesh_kernel_tets_ensemble_per_body_mass():
-    """Heterogeneous tet farm (``per_body_mass=True``): per-body masses
-    flow through the tet denominators and the mass-splitting wtd plane;
-    each row must equal its own single-body kernel run bitwise."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import mesh_pallas
-
-    st, topo, cfg = _windowed_tet_setup(res=3)
-    nb = 2
-    states = []
-    for b in range(nb):
-        im = np.asarray(st.inv_mass) * np.float32(1.0 + b)
-        im[b] = 0.0
-        states.append(st.replace(inv_mass=im))
-    batched = st.replace(
-        positions=jnp.stack([st.positions] * nb),
-        velocities=jnp.stack([st.velocities] * nb),
-        ext_force=jnp.stack([st.ext_force] * nb),
-        lambda_dist=jnp.stack([st.lambda_dist] * nb),
-        lambda_bend=jnp.stack([st.lambda_bend] * nb),
-        lambda_tet=jnp.stack([st.lambda_tet] * nb),
-        inv_mass=jnp.stack([s.inv_mass for s in states]),
-    )
-    with pltpu.force_tpu_interpret_mode():
-        f1 = mesh_pallas.make_mesh_substep_runner(
-            topo, cfg, (1 / 60.) / cfg.substeps, 2 * cfg.substeps,
-            block_edges=128, with_ext=True)
-        fb = mesh_pallas.make_mesh_substep_runner(
-            topo, cfg, (1 / 60.) / cfg.substeps, 2 * cfg.substeps,
-            block_edges=128, with_ext=True, n_bodies=nb,
-            per_body_mass=True)
-        singles = [f1(s) for s in states]
-        outb = fb(batched)
-    for b in range(nb):
-        np.testing.assert_array_equal(
-            np.asarray(outb.positions)[b],
-            np.asarray(singles[b].positions))
-        np.testing.assert_array_equal(
-            np.asarray(outb.lambda_tet)[b],
-            np.asarray(singles[b].lambda_tet))
-
-
-def _colored_windowed_tet_setup(res=4, **cfg_kw):
-    """Like _windowed_tet_setup but with color-contiguous edges (the fused
-    mesh kernel's COLORED distance mode requires them)."""
-    pos = L.lattice_points(res) + np.array([0, 1.0, 0])
-    tt = T.fix_orientation(pos, T.cube_lattice_tets(res))
-    pos2, topo = B.build_windowed_topology(
-        pos, T.tet_edges(tt), 1e-4, tets=tt, tet_compliance=1e-6,
-        triangles=T.boundary_faces(tt), colored=True)
-    cfg_kw.setdefault("substeps", 2)
-    cfg_kw.setdefault("iterations", 2)
-    cfg = SolverConfig(damping=0.02, enable_tet_volume=True,
-                       solve_mode=SolveMode.COLORED,
-                       ground_height=0.0, friction=0.3, **cfg_kw)
-    return state_from_topology(topo, pos2), topo, cfg
-
-
-@pytest.mark.parametrize("lmode", [LambdaMode.RESET, LambdaMode.DECAY])
-def test_mesh_kernel_colored_tets_match_engine(lmode):
-    """In-kernel COLORED tets (blocks packed color-major, full-strength
-    projections applied after each color with the plain inverse mass) vs
-    general._solve_tets_colored."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import mesh_pallas
-
-    st, topo, cfg = _colored_windowed_tet_setup(lambda_mode=lmode,
-                                                lambda_decay=0.98)
-    n_steps = 3
-    out_r = general.make_step(topo, cfg, 1 / 60., n_steps=n_steps)(st)
-    with pltpu.force_tpu_interpret_mode():
-        fn = mesh_pallas.make_mesh_substep_runner(
-            topo, cfg, (1 / 60.) / cfg.substeps, n_steps * cfg.substeps,
-            block_edges=128, with_ext=True)
-        out_p = fn(st)
-    dpos = np.abs(np.asarray(out_p.positions)
-                  - np.asarray(out_r.positions)).max()
-    dlam = np.abs(np.asarray(out_p.lambda_tet)
-                  - np.asarray(out_r.lambda_tet)).max()
-    assert np.isfinite(np.asarray(out_p.positions)).all()
-    assert dpos < 2e-5, f"kernel/engine colored-tet position mismatch {dpos}"
-    assert dlam < 1e-5, f"kernel/engine colored-tet lambda mismatch {dlam}"
-    assert out_p.lambda_tet.shape == (topo.n_tets,)
-
-
-def test_mesh_kernel_colored_tets_pinned():
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import mesh_pallas
-
-    st, topo, cfg = _colored_windowed_tet_setup()
-    pins = np.arange(4)
-    st = st.replace(inv_mass=st.inv_mass.at[pins].set(0.0))
-    out_r = general.make_step(topo, cfg, 1 / 60., n_steps=2)(st)
-    with pltpu.force_tpu_interpret_mode():
-        out_p = mesh_pallas.make_mesh_substep_runner(
-            topo, cfg, (1 / 60.) / cfg.substeps, 2 * cfg.substeps,
-            block_edges=128, with_ext=True)(st)
-    np.testing.assert_array_equal(
-        np.asarray(out_p.positions)[pins], np.asarray(st.positions)[pins])
-    dpos = np.abs(np.asarray(out_p.positions)
-                  - np.asarray(out_r.positions)).max()
-    assert dpos < 2e-5, dpos
-
-
-# -------------------------------------------------- stencil lattice twin
+# ------------------------------------------------- stencil lattice engine
 def test_kuhn_paths_positively_oriented_as_written():
     # the stencil engine consumes the path offsets directly (no
     # fix_orientation pass), so every path must be positive as written
@@ -650,122 +447,6 @@ def test_windowed_build_renumbers_tets():
     B.validate_topology(topo)
 
 
-# ------------------------------------------- streamed Pallas kernel twin
-def _streamed_tet_setup(res=6, **cfg_kw):
-    from softbodysimulation_tpu.solvers import lattice as lat
-
-    spec = L.lattice_spec(res, braced=True)
-    kw = dict(substeps=4, iterations=2, damping=0.02,
-              solve_mode=SolveMode.JACOBI, enable_tet_volume=True,
-              gravity_is_acceleration=True, ground_height=0.0, friction=0.3)
-    kw.update(cfg_kw)
-    cfg = SolverConfig(**kw)
-    st = lat.make_lattice_state(spec, center=(0, 0.6, 0), mass=0.01,
-                                tet_volume=True)
-    return spec, cfg, st
-
-
-@pytest.mark.parametrize("mode", [LambdaMode.RESET, LambdaMode.DECAY,
-                                  LambdaMode.WARM_START])
-def test_streamed_kernel_tets_match_stencil_engine(mode):
-    """The in-kernel per-cell tet sweep must match solvers/lattice._tet_sweep
-    through the full substep loop (positions AND tet multipliers), in every
-    lambda lifecycle mode."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import lattice_pallas as lp
-    from softbodysimulation_tpu.solvers import lattice as lat
-
-    spec, cfg, st = _streamed_tet_setup(
-        lambda_mode=mode, lambda_decay=0.98, warm_start_fraction=0.5)
-    ref = lat.make_substep_runner(spec, cfg, 1 / 480., 10)(st)
-    with pltpu.force_tpu_interpret_mode():
-        out = lp.make_pallas_substep_runner_streamed(
-            spec, cfg, 1 / 480., 10)(st)
-    dpos = np.abs(np.asarray(out.positions)
-                  - np.asarray(ref.positions)).max()
-    dlam = np.abs(np.asarray(out.lambda_tet)
-                  - np.asarray(ref.lambda_tet)).max()
-    assert np.isfinite(np.asarray(out.positions)).all()
-    assert dpos < 1e-5, f"streamed tets {mode}: position mismatch {dpos}"
-    assert dlam < 1e-5, f"streamed tets {mode}: lambda_tet mismatch {dlam}"
-
-
-def test_streamed_kernel_tets_colored_distance():
-    """Tet sweep composed with COLORED (family-parity GS) distance solve."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import lattice_pallas as lp
-    from softbodysimulation_tpu.solvers import lattice as lat
-
-    spec, cfg, st = _streamed_tet_setup(solve_mode=SolveMode.COLORED)
-    ref = lat.make_substep_runner(spec, cfg, 1 / 480., 8)(st)
-    with pltpu.force_tpu_interpret_mode():
-        out = lp.make_pallas_substep_runner_streamed(
-            spec, cfg, 1 / 480., 8)(st)
-    dpos = np.abs(np.asarray(out.positions)
-                  - np.asarray(ref.positions)).max()
-    assert dpos < 1e-5, f"streamed tets colored mismatch {dpos}"
-
-
-def test_streamed_kernel_tets_solid_scene_step_semantics():
-    """make_pallas_step on the solid_lattice config (ext-force lifecycle +
-    VELOCITY_REFLECT is not used here, but fast_math + RESET x1 is the
-    bench regime) matches the stencil engine's make_step."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import lattice_pallas as lp
-    from softbodysimulation_tpu.solvers import lattice as lat
-
-    spec, cfg, st = _streamed_tet_setup(
-        res=5, substeps=8, iterations=1, fast_math=True,
-        lambda_mode=LambdaMode.RESET)
-    f = np.zeros((spec.n_particles, 3), np.float32)
-    f[:7] = (2.0, 4.0, -3.0)
-    st = st.replace(ext_force=jnp.asarray(f))
-    ref = lat.make_step(spec, cfg, 1 / 60., n_steps=2)(st)
-    with pltpu.force_tpu_interpret_mode():
-        out = lp.make_pallas_step(spec, cfg, 1 / 60., n_steps=2)(st)
-    dpos = np.abs(np.asarray(out.positions)
-                  - np.asarray(ref.positions)).max()
-    dlam = np.abs(np.asarray(out.lambda_tet)
-                  - np.asarray(ref.lambda_tet)).max()
-    assert dpos < 1e-5, f"solid-scene step mismatch {dpos}"
-    assert dlam < 1e-5
-
-
-def test_streamed_kernel_tets_ensemble_rows_match_single():
-    """n_bodies ensembles with tets: every body row equals the single-body
-    kernel bitwise (row-independent arithmetic on the lane axis)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import lattice_pallas as lp
-    from softbodysimulation_tpu.parallel.batch import stack_states
-
-    spec, cfg, st = _streamed_tet_setup(res=4)
-    with pltpu.force_tpu_interpret_mode():
-        single = lp.make_pallas_substep_runner_streamed(
-            spec, cfg, 1 / 480., 6)(st)
-        batched = stack_states([st, st, st])
-        out = lp.make_pallas_substep_runner_streamed(
-            spec, cfg, 1 / 480., 6, n_bodies=3)(batched)
-    for b in range(3):
-        np.testing.assert_array_equal(np.asarray(out.positions[b]),
-                                      np.asarray(single.positions))
-        np.testing.assert_array_equal(np.asarray(out.lambda_tet[b]),
-                                      np.asarray(single.lambda_tet))
-
-
-def test_resident_kernel_refuses_tets():
-    """The VMEM-resident kernel has no tet sweep: it must refuse rather
-    than silently drop the constraint family."""
-    from softbodysimulation_tpu.kernels import lattice_pallas as lp
-
-    spec, cfg, _ = _streamed_tet_setup(res=4)
-    with pytest.raises(NotImplementedError):
-        lp.make_pallas_substep_runner(spec, cfg, 1 / 480., 4)
-
-
 # -------------------------------------------------- windowed tet backend
 def _windowed_tet_backend_setup(res=5, **cfg_kw):
     pos0 = L.lattice_points(res) + np.array([0, 1.0, 0])
@@ -787,7 +468,7 @@ def _windowed_tet_backend_setup(res=5, **cfg_kw):
 
 
 def test_windowed_tets_match_gather():
-    """tet_backend='windowed' (4-endpoint signed one-hot MXU sweeps over
+    """tet_backend='windowed' (4-endpoint signed one-hot sweeps over
     topo.tet_windows) == the gather sweep.  dot_oh's exact one-hot
     discipline makes the two paths agree to fp-reassociation noise
     (measured 6e-6 over 20 contact steps on CPU)."""
@@ -842,110 +523,3 @@ def test_windowed_tets_guard_without_windows():
         general.make_step(topo, cfg.replace(tet_backend="windowed",
                                             solve_mode=SolveMode.JACOBI),
                           1 / 60.)(state)
-
-# ------------------------------------- lean tet spelling (round 4, #6)
-@pytest.mark.parametrize("mode", [LambdaMode.RESET, LambdaMode.WARM_START])
-def test_streamed_tets_lean_matches_fat_bitwise(mode):
-    """The lean (tres-free) tet spelling must be BITWISE equal to the fat
-    spelling: identical arithmetic, only the multiplier residency/IO
-    differs (the last substep's dl is DMA'd straight to the output)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import lattice_pallas as lp
-
-    spec, cfg, st = _streamed_tet_setup(
-        iterations=1, lambda_mode=mode, warm_start_fraction=0.5)
-    with pltpu.force_tpu_interpret_mode():
-        fat = lp.make_pallas_substep_runner_streamed(
-            spec, cfg, 1 / 480., 10, tet_stream_lambda=False)(st)
-        lean = lp.make_pallas_substep_runner_streamed(
-            spec, cfg, 1 / 480., 10, tet_stream_lambda=True)(st)
-    np.testing.assert_array_equal(np.asarray(lean.positions),
-                                  np.asarray(fat.positions))
-    np.testing.assert_array_equal(np.asarray(lean.velocities),
-                                  np.asarray(fat.velocities))
-    np.testing.assert_array_equal(np.asarray(lean.lambda_tet),
-                                  np.asarray(fat.lambda_tet))
-
-
-def test_streamed_tets_lean_matches_stencil_engine():
-    """Forced-lean kernel tracks solvers/lattice through the full substep
-    loop at the bench regime (fast_math RESET x1), positions + tet
-    multipliers."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import lattice_pallas as lp
-    from softbodysimulation_tpu.solvers import lattice as lat
-
-    spec, cfg, st = _streamed_tet_setup(
-        iterations=1, fast_math=True, lambda_mode=LambdaMode.RESET)
-    ref = lat.make_substep_runner(spec, cfg, 1 / 480., 10)(st)
-    with pltpu.force_tpu_interpret_mode():
-        out = lp.make_pallas_substep_runner_streamed(
-            spec, cfg, 1 / 480., 10, tet_stream_lambda=True)(st)
-    dpos = np.abs(np.asarray(out.positions)
-                  - np.asarray(ref.positions)).max()
-    dlam = np.abs(np.asarray(out.lambda_tet)
-                  - np.asarray(ref.lambda_tet)).max()
-    assert dpos < 1e-5, f"lean tets position mismatch {dpos}"
-    assert dlam < 1e-5, f"lean tets lambda_tet mismatch {dlam}"
-
-
-# ------------------------- carry tet spelling (round 5, verdict #6)
-@pytest.mark.parametrize("mode,iters", [
-    (LambdaMode.DECAY, 1),        # carried across substeps
-    (LambdaMode.RESET, 2),        # carried across iterations
-    (LambdaMode.DECAY, 2),        # both
-    (LambdaMode.WARM_START, 2),
-])
-def test_streamed_tets_carry_matches_fat_bitwise(mode, iters):
-    """The CARRY (tres-free) tet spelling — per-path multiplier planes
-    streamed through the slots staging and carried in the lambda_tet HBM
-    buffer — must be BITWISE equal to the fat spelling in every carried
-    lifecycle (DECAY and/or multi-iteration), which is what lifts the
-    res-41..48 streamed-solid cap for those configs (round-4 verdict
-    item 6)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import lattice_pallas as lp
-
-    spec, cfg, st = _streamed_tet_setup(
-        iterations=iters, lambda_mode=mode, warm_start_fraction=0.5)
-    # non-trivial carried multipliers: start from a stepped state
-    with pltpu.force_tpu_interpret_mode():
-        st = lp.make_pallas_substep_runner_streamed(
-            spec, cfg, 1 / 480., 2, tet_stream_lambda=False)(st)
-        fat = lp.make_pallas_substep_runner_streamed(
-            spec, cfg, 1 / 480., 6, tet_stream_lambda=False)(st)
-        carry = lp.make_pallas_substep_runner_streamed(
-            spec, cfg, 1 / 480., 6, tet_stream_lambda=True)(st)
-    assert np.abs(np.asarray(st.lambda_tet)).max() > 0  # carried state real
-    np.testing.assert_array_equal(np.asarray(carry.positions),
-                                  np.asarray(fat.positions))
-    np.testing.assert_array_equal(np.asarray(carry.velocities),
-                                  np.asarray(fat.velocities))
-    np.testing.assert_array_equal(np.asarray(carry.lambda_tet),
-                                  np.asarray(fat.lambda_tet))
-
-
-def test_streamed_tets_carry_matches_stencil_engine():
-    """Forced-carry kernel tracks solvers/lattice through the full substep
-    loop in the DECAY x multi-iteration lifecycle (the regime the round-4
-    lean spelling refused)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from softbodysimulation_tpu.kernels import lattice_pallas as lp
-    from softbodysimulation_tpu.solvers import lattice as lat
-
-    spec, cfg, st = _streamed_tet_setup(
-        iterations=2, lambda_mode=LambdaMode.DECAY, lambda_decay=0.98)
-    ref = lat.make_substep_runner(spec, cfg, 1 / 480., 10)(st)
-    with pltpu.force_tpu_interpret_mode():
-        out = lp.make_pallas_substep_runner_streamed(
-            spec, cfg, 1 / 480., 10, tet_stream_lambda=True)(st)
-    dpos = np.abs(np.asarray(out.positions)
-                  - np.asarray(ref.positions)).max()
-    dlam = np.abs(np.asarray(out.lambda_tet)
-                  - np.asarray(ref.lambda_tet)).max()
-    assert dpos < 1e-5, f"carry tets position mismatch {dpos}"
-    assert dlam < 1e-5, f"carry tets lambda_tet mismatch {dlam}"

@@ -1,4 +1,4 @@
-"""Windowed one-hot MXU distance backend (topology/windows.py +
+"""Windowed one-hot distance backend (topology/windows.py +
 general._solve_distance_windowed): equivalence with the gather backend,
 structure validity, fallback behavior, vmap compatibility."""
 
